@@ -1,0 +1,424 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
+
+Builds the port's hand-written kernels from ``csrc/`` (CUDA C++) and
+``ops/cuda/`` (Triton), holds each against its plain PyTorch version on the
+card at the shapes the serving path gives it, then drives the serving path
+itself, ``serve_demo --streams 16`` at 240x320 with EFMNet342 at 64x64 and
+random seeded weights, checks that every kernel launched there, and reruns
+the same frames and weights on the CPU to check the answers.
+
+    python3 chip_smoke.py
+
+Prints one JSON line per phase, a ``{"kernels": [...]}`` line, the card's
+name and power limit, and last ``{"ok": true, "device": {...}}``. Exits
+non-zero, printing no result, without CUDA, outside a checkout of the
+repository, or when any phase fails. TF32 is off throughout (cuDNN's
+default would run the float32 convs in TF32), so the card and the CPU
+compute the same float32 products.
+"""
+
+import json
+import os
+import subprocess
+import sys
+import time
+import traceback
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+PKG = "improving_face_recognition_performance_using_triplet_loss_tpu_torch"
+JAX_PKG = "improving_face_recognition_performance_using_triplet_loss_tpu"
+
+# H100 SXM, NVIDIA's data sheet: HBM3 rate and the float32 rate outside the
+# tensor cores (every kernel here computes in float32 on the CUDA cores)
+MEM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+
+STREAMS, FRAME_HW, IMAGE = 16, (240, 320), 64
+
+
+def slice_argv(frames: int, device: str) -> list[str]:
+    """serve_demo's arguments for the slice: 16 streams of 240x320 frames,
+    EFMNet342 on 64x64 crops, 1,000 gallery identities."""
+    return ["--streams", str(STREAMS), "--frames", str(frames),
+            "--frame-size", str(FRAME_HW[0]), str(FRAME_HW[1]),
+            "--image-size", str(IMAGE), "--identities", "1000",
+            "--det-thresholds", "0.3", "0.3", "0.3", "--device", device]
+
+
+# the serving path's NMS calls per dispatch (detect/device_pnet.py,
+# detect/device_cascade.py): [sets, rows, threshold, method]; 8 pyramid
+# scales at 240x320
+NMS_PATH = {"per_scale": (STREAMS * 8, 128, 0.5, "Union"),
+            "cross_scale": (STREAMS, 1024, 0.7, "Union"),
+            "stage2": (STREAMS, 128, 0.7, "Union"),
+            "stage3": (STREAMS, 64, 0.7, "Min")}
+# EFM3 calls of one EFMNet342 forward over the STREAMS crops:
+# (rows, channels) -> calls
+EFM3_PATH = {(STREAMS * 32 * 32, 66): 1, (STREAMS * 32 * 32, 99): 2,
+             (STREAMS * 32 * 32, 198): 1,
+             (STREAMS * 16 * 16, 132): 2, (STREAMS * 16 * 16, 198): 3,
+             (STREAMS * 16 * 16, 387): 1,
+             (STREAMS * 8 * 8, 258): 3, (STREAMS * 8 * 8, 387): 4,
+             (STREAMS * 8 * 8, 261): 1,
+             (STREAMS * 4 * 4, 174): 4, (STREAMS * 4 * 4, 261): 6,
+             (STREAMS, 513): 1}
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def bound(nbytes: float, ops: float) -> tuple[float, str]:
+    """Least time for the work in ms, and what sets it."""
+    t_mem, t_ops = nbytes / MEM_BYTES_PER_S, ops / F32_OPS_PER_S
+    return max(t_mem, t_ops) * 1e3, ("bytes" if t_mem >= t_ops else
+                                     "operations")
+
+
+def time_ms(torch, fn, reps: int, warmup: int = 3) -> float:
+    """Mean ms of ``fn`` on the card over ``reps`` back-to-back calls (CUDA
+    events; inputs stay resident in L2 as they do on the path)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+# ----------------------------------------------------------------- phases
+
+
+def phase_build(ctx):
+    from improving_face_recognition_performance_using_triplet_loss_tpu_torch.ops.cuda import (
+        _build,
+    )
+
+    t0 = time.perf_counter()
+    _build.build_all()
+    seconds = time.perf_counter() - t0
+    ptxas = {}
+    for name in _build.FLAGS:
+        _build.load(name)
+        ptxas[name] = [ln.strip() for ln in _build.ptxas_report(name).splitlines()
+                       if "registers" in ln or "spill" in ln]
+    return {"seconds": seconds, "ptxas": ptxas}
+
+
+def _soups(torch, gen, sets, n, *, ties=False, invalid=0.3):
+    """Random boxes in a 240x320 frame: [sets, n, 5] on the card."""
+    u = lambda *s: torch.rand(*s, generator=gen)  # noqa: E731
+    x1 = u(sets, n) * 300
+    y1 = u(sets, n) * 220
+    side = 12 + u(sets, n) * 90
+    score = u(sets, n)
+    if ties:
+        score = torch.round(score * 10) / 10
+    score = torch.where(u(sets, n) < invalid, float("-inf"), score)
+    b = torch.stack([x1, y1, x1 + side, y1 + side * (0.8 + 0.4 * u(sets, n)),
+                     score], -1)
+    return b.cuda()
+
+
+def _greedy_iou_count(boxes, threshold, method) -> int:
+    """IoUs greedy NMS evaluates on these sets: each kept box against the
+    later rows still alive when it is reached (what the kernel computes)."""
+    import numpy as np
+
+    total = 0
+    for b in boxes.cpu().numpy():
+        b = b[np.isfinite(b[:, 4])]
+        order = np.argsort(-b[:, 4], kind="stable")
+        x1, y1, x2, y2 = (b[order, i] for i in range(4))
+        area = (x2 - x1 + 1) * (y2 - y1 + 1)
+        alive = np.ones(len(order), bool)
+        for i in range(len(order)):
+            if not alive[i]:
+                continue
+            rest = np.where(alive[i + 1:])[0] + i + 1
+            total += len(rest)
+            w = np.maximum(0, np.minimum(x2[i], x2[rest])
+                           - np.maximum(x1[i], x1[rest]) + 1)
+            h = np.maximum(0, np.minimum(y2[i], y2[rest])
+                           - np.maximum(y1[i], y1[rest]) + 1)
+            inter = w * h
+            den = (np.minimum(area[i], area[rest]) if method == "Min"
+                   else area[i] + area[rest] - inter)
+            alive[rest[inter / den > threshold]] = False
+    return total
+
+
+def phase_nms(ctx):
+    import torch
+
+    from improving_face_recognition_performance_using_triplet_loss_tpu_torch.ops import (
+        boxes as tb,
+    )
+    from improving_face_recognition_performance_using_triplet_loss_tpu_torch.ops.cuda import (
+        nms,
+    )
+
+    gen = torch.Generator().manual_seed(1)
+    cases = {name: (_soups(torch, gen, s, n), th, m)
+             for name, (s, n, th, m) in NMS_PATH.items()}
+    cases["ties"] = (_soups(torch, gen, STREAMS, 1024, ties=True), 0.5,
+                     "Union")
+    cases["chain_1024"] = (torch.from_numpy(
+        tb.adversarial_nms_chain(1024))[None].cuda(), 0.5, "Union")
+    invalid = _soups(torch, gen, 1, 128)
+    invalid[..., 4] = float("-inf")
+    cases["all_invalid"] = (invalid, 0.5, "Union")
+    report, worst = {}, 0
+    for name, (b, th, m) in cases.items():
+        got = nms.nms_mask_batched(b, th, m)
+        want = nms.nms_mask_plain(b, th, m)
+        torch.cuda.synchronize()
+        diff = int((got != want).sum())
+        worst = max(worst, int(diff > 0))
+        report[name] = {"shape": list(b.shape[:2]), "kept": int(got.sum()),
+                        "mismatches": diff}
+    chain_keep = tb.nms_mask(cases["chain_1024"][0][0], 0.5).cpu()
+    chain_ok = torch.equal(chain_keep.nonzero().flatten(),
+                           torch.arange(0, 1024, 2))
+    ms = plain_ms = nbytes = ops = 0.0
+    for name in NMS_PATH:
+        b, th, m = cases[name]
+        ms += time_ms(torch, lambda: nms.nms_mask_batched(b, th, m), 20)
+        plain_ms += time_ms(torch, lambda: nms.nms_mask_plain(b, th, m), 3,
+                            warmup=1)
+        nbytes += b.numel() * 4 + b.shape[0] * b.shape[1]
+        ops += 14 * _greedy_iou_count(b, th, m)
+    bound_ms, bound_by = bound(nbytes, ops)
+    ok = worst == 0 and chain_ok
+    ctx["kernels"]["nms"].update(max_abs_err=worst, ms=ms, plain_ms=plain_ms,
+                                 bound_ms=bound_ms, bound_by=bound_by,
+                                 library_ms=None)
+    return {"ok": ok, "tolerance": "masks exact", "cases": report,
+            "chain_keeps_even_rows": chain_ok, "path_ms": ms,
+            "path_plain_ms": plain_ms}
+
+
+def phase_stem(ctx):
+    import torch
+    import torch.nn.functional as F
+
+    from improving_face_recognition_performance_using_triplet_loss_tpu_torch.ops import (
+        mfm,
+    )
+    from improving_face_recognition_performance_using_triplet_loss_tpu_torch.ops.cuda import (
+        stem,
+    )
+
+    gen = torch.Generator().manual_seed(2)
+    b, c = STREAMS, 99
+    x = torch.rand(b, IMAGE, IMAGE, 1, generator=gen).cuda()
+    w = (torch.randn(5, 5, 1, c, generator=gen) / 5.0).cuda()
+    bias = (torch.randn(c, generator=gen) * 0.1).cuda()
+    out = {}
+    for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 1e-2)):
+        xs, ws, bs = x.to(dtype), w.to(dtype), bias.to(dtype)
+        got = stem.stem_conv_maxout_pool(xs, ws, bs, maxout=3).float()
+        want = stem.stem_conv_maxout_pool_plain(xs, ws, bs, maxout=3).float()
+        err = float((got - want).abs().max())
+        ok = bool(torch.allclose(got, want, rtol=tol, atol=tol))
+        out[str(dtype).split(".")[1]] = {"max_abs_err": err, "tolerance": tol,
+                                         "ok": ok, "shape": list(got.shape)}
+    xn = x.permute(0, 3, 1, 2)
+    wn = w.permute(3, 2, 0, 1).contiguous()
+
+    def library():
+        y = F.conv2d(xn, wn, bias, padding=2)
+        return F.max_pool2d(mfm.efm3_plain(y, axis=1), 2, 2)
+
+    ms = time_ms(torch, lambda: stem.stem_conv_maxout_pool(x, w, bias,
+                                                           maxout=3), 50)
+    plain_ms = time_ms(torch, lambda: stem.stem_conv_maxout_pool_plain(
+        x, w, bias, maxout=3), 50)
+    library_ms = time_ms(torch, library, 50)
+    n_out = b * (IMAGE // 2) ** 2 * (2 * c // 3)
+    nbytes = (x.numel() + w.numel() + bias.numel() + n_out) * 4
+    ops = 2 * 25 * c * b * IMAGE * IMAGE + 2 * b * IMAGE * IMAGE * c
+    bound_ms, bound_by = bound(nbytes, ops)
+    ctx["kernels"]["stem"].update(
+        max_abs_err=out["float32"]["max_abs_err"], ms=ms, plain_ms=plain_ms,
+        bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
+    return {"ok": all(v["ok"] for v in out.values()), **out}
+
+
+def phase_efm3(ctx):
+    import torch
+
+    from improving_face_recognition_performance_using_triplet_loss_tpu_torch.ops.cuda import (
+        efm3,
+    )
+
+    gen = torch.Generator().manual_seed(3)
+    worst, ms, plain_ms, lib_ms, nbytes, ops = 0.0, 0.0, 0.0, 0.0, 0.0, 0.0
+    calls = 0
+    shapes = {}
+    for (rows, c), n in EFM3_PATH.items():
+        x = torch.randn(rows, c, generator=gen).cuda()
+        got = efm3.efm3_rows(x)
+        want = efm3.efm3_rows_plain(x)
+        exact = bool(torch.equal(got, want))
+        xb = x.to(torch.bfloat16)
+        exact_bf16 = bool(torch.equal(efm3.efm3_rows(xb),
+                                      efm3.efm3_rows_plain(xb)))
+        worst = max(worst, float((got - want).abs().max()))
+        t = c // 3
+        k = time_ms(torch, lambda: efm3.efm3_rows(x), 50)
+        p = time_ms(torch, lambda: efm3.efm3_rows_plain(x), 50)
+        lib = time_ms(torch, lambda: torch.aminmax(x.view(rows, 3, t), dim=1),
+                      50)
+        ms, plain_ms, lib_ms = ms + n * k, plain_ms + n * p, lib_ms + n * lib
+        nbytes += n * (rows * c + rows * 2 * t) * 4
+        ops += n * rows * 2 * t * 2          # two compares per output
+        calls += n
+        shapes[f"{rows}x{c}"] = {"calls": n, "exact": exact,
+                                 "exact_bf16": exact_bf16, "ms": k}
+    bound_ms, bound_by = bound(nbytes, ops)
+    ctx["kernels"]["efm3"].update(max_abs_err=worst, ms=ms, plain_ms=plain_ms,
+                                  bound_ms=bound_ms, bound_by=bound_by,
+                                  library_ms=lib_ms)
+    ok = worst == 0.0 and all(v["exact"] and v["exact_bf16"]
+                              for v in shapes.values())
+    return {"ok": ok, "tolerance": "exact", "calls_per_forward": calls,
+            "shapes": shapes}
+
+
+def phase_slice(ctx):
+    import torch
+
+    from improving_face_recognition_performance_using_triplet_loss_tpu_torch.cli import (
+        serve_demo,
+    )
+
+    counters = ctx["counters"]
+    for c in counters.values():
+        c.reset()
+    res = serve_demo.main(slice_argv(64, "cuda"))
+    torch.cuda.synchronize()
+    launches = {name: c.count for name, c in counters.items()}
+    for name, n in launches.items():
+        ctx["kernels"][name]["launches"] = n
+    dispatches = res["dispatches"] + 1
+    out = {k: v.cpu() for k, v in res["out"].items()}
+    # the same seed gives the same weights and frames on the CPU
+    cpu = serve_demo.main(slice_argv(STREAMS, "cpu"))["out"]
+    found = out["found"]
+    checks = {
+        "launched": all(n > 0 for n in launches.values()),
+        "shapes": (tuple(out["box"].shape) == (STREAMS, 4)
+                   and tuple(out["embedding"].shape) == (STREAMS, 342)),
+        "finite": bool(torch.isfinite(out["embedding"]).all()),
+        "unit_norm": bool(((out["embedding"][found].norm(dim=-1) - 1).abs()
+                           < 1e-4).all()),
+        "found_equal": bool(torch.equal(found, cpu["found"])),
+        "index_equal": bool(torch.equal(out["index"], cpu["index"])),
+        "cap_dropped_equal": bool(torch.equal(out["cap_dropped"],
+                                              cpu["cap_dropped"])),
+    }
+    both = found & cpu["found"]
+    box_err = float((out["box"][both] - cpu["box"][both]).abs().max()) \
+        if both.any() else 0.0
+    emb_err = float((out["embedding"][both]
+                     - cpu["embedding"][both]).abs().max()) \
+        if both.any() else 0.0
+    checks["box_atol_1e-2"] = box_err <= 1e-2
+    checks["embedding_atol_1e-3"] = emb_err <= 1e-3
+    return {"ok": all(checks.values()), "checks": checks,
+            "frames_per_s": res["fps"], "first_dispatch_s": res["first_s"],
+            "dispatches": dispatches, "found": int(found.sum()),
+            "launches": launches,
+            "launches_per_dispatch": {k: v / dispatches
+                                      for k, v in launches.items()},
+            "box_max_err_vs_cpu": box_err,
+            "embedding_max_err_vs_cpu": emb_err,
+            "cap_dropped": out["cap_dropped"].tolist()}
+
+
+PHASES = {"build": phase_build, "nms": phase_nms, "stem": phase_stem,
+          "efm3": phase_efm3, "slice": phase_slice}
+
+
+def main() -> int:
+    try:
+        import torch
+    except ImportError:
+        print("chip_smoke: torch is not installed", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available; this smoke test runs "
+              "only on a GPU", file=sys.stderr)
+        return 2
+    if not os.path.isdir(os.path.join(ROOT, PKG)):
+        print(f"chip_smoke: {PKG}/ not found beside chip_smoke.py; run it "
+              "from a checkout of the repository", file=sys.stderr)
+        return 2
+    sys.path.insert(0, ROOT)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    from improving_face_recognition_performance_using_triplet_loss_tpu_torch.ops.cuda import (
+        efm3,
+        nms,
+        stem,
+    )
+
+    pkg = os.path.join(PKG, "")
+    ctx = {
+        "counters": {"nms": nms.launches, "stem": stem.launches,
+                     "efm3": efm3.launches},
+        "kernels": {
+            "nms": {"name": "nms", "route": "cuda",
+                    "source": pkg + "csrc/nms.cu",
+                    "replaces": JAX_PKG + "/ops/pallas/nms_kernel.py:118"},
+            "stem": {"name": "stem", "route": "cuda",
+                     "source": pkg + "csrc/stem.cu",
+                     "replaces": JAX_PKG + "/ops/pallas/stem_kernel.py:130"},
+            "efm3": {"name": "efm3", "route": "triton",
+                     "source": pkg + "ops/cuda/efm3.py",
+                     "replaces": JAX_PKG + "/ops/pallas/mfm_kernel.py:32"},
+        },
+    }
+    failed = []
+    for name, fn in PHASES.items():
+        t0 = time.perf_counter()
+        try:
+            result = fn(ctx)
+        except Exception:   # report the phase, run the rest, exit non-zero
+            traceback.print_exc()
+            result = {"ok": False, "error": traceback.format_exc(limit=3)}
+        result.setdefault("ok", True)
+        emit({"phase": name, "seconds": time.perf_counter() - t0, **result})
+        if not result["ok"]:
+            failed.append(name)
+        if name == "build" and failed:
+            break
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    emit({"kernels": [{k: kern.get(k) for k in keys}
+                      for kern in ctx["kernels"].values()]})
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()
+    print(smi[0] if smi else "nvidia-smi: no output", flush=True)
+    if failed:
+        print(f"chip_smoke: failed phases: {', '.join(failed)}",
+              file=sys.stderr)
+        return 1
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,22 @@
+"""PyTorch + CUDA port of the facejax serving path.
+
+A second package beside the JAX reference
+(``improving_face_recognition_performance_using_triplet_loss_tpu``). It
+imports ``torch`` and numpy only, never ``jax``, ``flax`` or the JAX
+package, and mirrors that package's subpackages so every module has one
+JAX twin:
+
+- ``ops``     — MFM/EFM activations, gallery distances, box ops and NMS,
+                the space-to-depth stem; ``ops/cuda/`` holds the wrappers of
+                the hand-written Hopper kernels whose sources live in
+                ``csrc/`` (CUDA C++) or in the wrapper itself (Triton).
+- ``models``  — MTCNN PNet/RNet/ONet and the 342-d EFM symbol ladder.
+- ``detect``  — the batched on-device MTCNN cascade.
+- ``serve``   — weight export/import and the fused recognition pipelines.
+- ``cli``     — ``serve_demo --streams N``.
+
+Every entry point runs on ``cuda`` unless the caller passes
+``device="cpu"``; with no CUDA present the default device raises.
+"""
+
+__version__ = "0.1.0"

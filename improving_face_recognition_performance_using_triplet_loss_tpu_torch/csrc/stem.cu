@@ -1,0 +1,166 @@
+// Kernel B3: the fused stem. 5x5 SAME conv of a one-channel image, bias,
+// then mfm2 or efm3, then the 2x2/2 max-pool, in one pass.
+//
+// Replaces: ops/pallas/stem_kernel.py::stem_conv_maxout_pool_pallas of the
+// JAX package (an s2d im2col matmul with the maxout + phase-max epilogue).
+//
+// Semantics: out[b, py, px, :] for the pooled pixel (py, px) is built from
+// the four conv outputs ("phases") at (2py+pi, 2px+pj), each a 25-tap f32
+// sum plus the f32 bias. mfm2: the max over the 4 phases x 2 channel
+// halves. efm3: the max over 4 phases x 3 thirds, then the min over the
+// thirds taken per phase before the max over the phases (efm3 happens
+// before the pool). Accumulation is f32; the output has the input's dtype.
+//
+// What bounds it on the H100: at the serving shape (B=16, 64x64, C=99,
+// maxout 3) it reads 256 KB of image, writes 4.3 MB of activations (f32)
+// and does 0.32 GFLOP of f32 FMAs: 70 FLOP per byte, above the f32 ridge
+// of 20 (the published 67 TFLOP/s non-tensor-core rate over 3.35 TB/s), so
+// f32 operations bound it. The TPU kernel went to the MXU through an im2col
+// tensor; a K=25 (36 after s2d) contraction is too shallow to feed wgmma
+// well, and the im2col tensor would cost 36x the image in device memory.
+//
+// What the design does about it: no im2col in device memory. A CTA owns an
+// 8x8 tile of pooled pixels; it stages the 20x20 input window (with the
+// SAME zero halo) and the whole [25, C] weight matrix in shared memory,
+// once. Each thread owns one (pooled pixel, output channel) item: it keeps
+// the 6x6 input window in registers, forms the 4 phase sums of each of its
+// 2 or 3 channels with register FMAs, applies bias and maxout, takes the
+// phase max, and writes only the pooled result. Adjacent threads own
+// adjacent channels, so weight reads hit distinct banks and the stores
+// are contiguous.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+
+namespace {
+
+constexpr int TY = 8;  // pooled rows per CTA
+constexpr int TX = 8;  // pooled cols per CTA
+constexpr int IH = 2 * TY + 4;
+constexpr int IW = 2 * TX + 4;
+constexpr int THREADS = 256;
+
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+template <typename T>
+__device__ __forceinline__ T from_f(float v);
+template <>
+__device__ __forceinline__ float from_f<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
+template <typename T, int MAXOUT>
+__global__ void __launch_bounds__(THREADS)
+stem_kernel(const T* __restrict__ x, const float* __restrict__ w,
+            const float* __restrict__ bias, T* __restrict__ out, int H, int W,
+            int C) {
+  extern __shared__ float sm[];
+  float* win = sm;             // [IH, IW] input window, zero halo
+  float* ws = win + IH * IW;   // [25, C] taps
+  float* bs = ws + 25 * C;     // [C]
+
+  const int b = blockIdx.z;
+  const int py0 = blockIdx.y * TY, px0 = blockIdx.x * TX;
+  const int Ho = H / 2, Wo = W / 2;
+  const int iy0 = 2 * py0 - 2, ix0 = 2 * px0 - 2;
+  const T* xb = x + (size_t)b * H * W;
+  for (int k = threadIdx.x; k < IH * IW; k += THREADS) {
+    const int iy = iy0 + k / IW, ix = ix0 + k % IW;
+    win[k] = (iy >= 0 && iy < H && ix >= 0 && ix < W)
+                 ? to_f(xb[(size_t)iy * W + ix])
+                 : 0.0f;
+  }
+  for (int k = threadIdx.x; k < 25 * C; k += THREADS) ws[k] = w[k];
+  for (int k = threadIdx.x; k < C; k += THREADS) bs[k] = bias[k];
+  __syncthreads();
+
+  const int G = C / MAXOUT;  // output channels per maxout slice
+  const int Cout = (MAXOUT == 3) ? 2 * G : G;
+  for (int item = threadIdx.x; item < TY * TX * G; item += THREADS) {
+    const int g = item % G;
+    const int p = item / G;
+    const int ty = p / TX, tx = p % TX;
+    const int py = py0 + ty, px = px0 + tx;
+    if (py >= Ho || px >= Wo) continue;
+    float v[6][6];
+#pragma unroll
+    for (int r = 0; r < 6; ++r)
+#pragma unroll
+      for (int c = 0; c < 6; ++c) v[r][c] = win[(2 * ty + r) * IW + 2 * tx + c];
+
+    float mx = -INFINITY;
+    float mn[4] = {INFINITY, INFINITY, INFINITY, INFINITY};
+#pragma unroll
+    for (int s = 0; s < MAXOUT; ++s) {
+      const int ch = s * G + g;
+      float a00 = 0.f, a01 = 0.f, a10 = 0.f, a11 = 0.f;
+#pragma unroll
+      for (int di = 0; di < 5; ++di)
+#pragma unroll
+        for (int dj = 0; dj < 5; ++dj) {
+          const float wv = ws[(di * 5 + dj) * C + ch];
+          a00 += v[di][dj] * wv;
+          a01 += v[di][dj + 1] * wv;
+          a10 += v[di + 1][dj] * wv;
+          a11 += v[di + 1][dj + 1] * wv;
+        }
+      const float bv = bs[ch];
+      const float ph[4] = {a00 + bv, a01 + bv, a10 + bv, a11 + bv};
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        mx = fmaxf(mx, ph[q]);
+        mn[q] = fminf(mn[q], ph[q]);
+      }
+    }
+    T* o = out + (((size_t)b * Ho + py) * Wo + px) * Cout;
+    o[g] = from_f<T>(mx);
+    if (MAXOUT == 3) {
+      const float m = fmaxf(fmaxf(mn[0], mn[1]), fmaxf(mn[2], mn[3]));
+      o[G + g] = from_f<T>(m);
+    }
+  }
+}
+
+template <typename T>
+int launch(const void* x, const void* w, const void* bias, void* out, int B,
+           int H, int W, int C, int maxout, void* stream) {
+  const int smem = (IH * IW + 26 * C) * (int)sizeof(float);
+  dim3 grid((W / 2 + TX - 1) / TX, (H / 2 + TY - 1) / TY, B);
+  auto kern = maxout == 3 ? &stem_kernel<T, 3> : &stem_kernel<T, 2>;
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  kern<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
+      (const T*)x, (const float*)w, (const float*)bias, (T*)out, H, W, C);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int stem_smem_bytes(int C) {
+  return (IH * IW + 26 * C) * (int)sizeof(float);
+}
+
+// x [B, H, W] (f32 or bf16), w [25, C] f32 (5x5 taps row-major, already
+// rounded to x's dtype by the caller), bias [C] f32,
+// out [B, H/2, W/2, C_out] in x's dtype.
+extern "C" int stem_conv_maxout_pool_f32(const void* x, const void* w,
+                                         const void* bias, void* out, int B,
+                                         int H, int W, int C, int maxout,
+                                         void* stream) {
+  return launch<float>(x, w, bias, out, B, H, W, C, maxout, stream);
+}
+
+extern "C" int stem_conv_maxout_pool_bf16(const void* x, const void* w,
+                                          const void* bias, void* out, int B,
+                                          int H, int W, int C, int maxout,
+                                          void* stream) {
+  return launch<__nv_bfloat16>(x, w, bias, out, B, H, W, C, maxout, stream);
+}

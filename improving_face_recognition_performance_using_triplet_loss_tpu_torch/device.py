@@ -1,0 +1,17 @@
+"""Device selection shared by every entry point of the port."""
+
+from __future__ import annotations
+
+import torch
+
+
+def resolve_device(device=None) -> torch.device:
+    """``None`` means ``cuda``. A CUDA device on a machine without CUDA
+    raises: the port never falls back to the CPU silently — pass
+    ``device="cpu"`` to run there on purpose."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "CUDA is not available: pass device='cpu' to run the port's "
+            "plain PyTorch path on the CPU")
+    return dev

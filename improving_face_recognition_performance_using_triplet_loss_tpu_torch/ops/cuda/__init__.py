@@ -1,0 +1,7 @@
+"""Wrappers of the port's hand-written Hopper kernels: ``nms`` (B5, CUDA
+C++), ``stem`` (B3, CUDA C++) and ``efm3`` (B2, Triton).
+
+Each wrapper launches its kernel for a CUDA tensor and runs the kernel's
+plain PyTorch version for a CPU tensor, and counts its launches in the
+module's ``launches``. ``_build`` compiles the CUDA sources of ``csrc/``.
+"""

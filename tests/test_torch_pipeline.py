@@ -1,0 +1,237 @@
+"""The port's serving path against the JAX package's, on the CPU.
+
+64x64 frames, embed size 32, cascade thresholds 0.05 and the seeds of
+tests/test_fused_pipeline.py (weights 0, frames 0, 2 and 5), with the
+weights made from those seeds with numpy in the JAX layouts and carried
+into the port. Integer and boolean outputs (``found``, ``index``,
+``cap_dropped``, the stage-1 and cascade validity) must be equal; boxes
+match at atol 1e-3 and similarities and embeddings at 1e-4 (float32 convs
+summed in another order on each side).
+
+No detection score of these seeds lies within 1e-5 of a threshold (checked
+below), so rounding differences cannot flip a candidate.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from improving_face_recognition_performance_using_triplet_loss_tpu.detect import (
+    MTCNNDetector as JMTCNNDetector,
+)
+from improving_face_recognition_performance_using_triplet_loss_tpu.detect.device_cascade import (
+    make_device_cascade as j_cascade,
+)
+from improving_face_recognition_performance_using_triplet_loss_tpu.detect.device_pnet import (
+    make_device_stage1 as j_stage1,
+)
+from improving_face_recognition_performance_using_triplet_loss_tpu.models import (
+    EFMNet342 as JEFMNet342,
+    mtcnn as jmtcnn,
+)
+from improving_face_recognition_performance_using_triplet_loss_tpu.serve.pipeline import (
+    make_recognition_pipeline as j_pipeline,
+)
+from improving_face_recognition_performance_using_triplet_loss_tpu_torch.cli import (
+    serve_demo,
+)
+from improving_face_recognition_performance_using_triplet_loss_tpu_torch.detect import (
+    MTCNNDetector,
+)
+from improving_face_recognition_performance_using_triplet_loss_tpu_torch.detect.device_cascade import (
+    make_device_cascade,
+)
+from improving_face_recognition_performance_using_triplet_loss_tpu_torch.detect.device_pnet import (
+    make_device_stage1,
+)
+from improving_face_recognition_performance_using_triplet_loss_tpu_torch.serve.convert import (
+    from_jax_params,
+)
+from improving_face_recognition_performance_using_triplet_loss_tpu_torch.serve.pipeline import (
+    make_multistream_pipeline,
+    make_recognition_pipeline,
+    normalize_gallery,
+)
+from _torch_weights import flax_params, mtcnn_params
+
+H = W = 64
+TH = (0.05, 0.05, 0.05)
+KW = dict(frame_h=H, frame_w=W, embed_size=32, thresholds=TH,
+          sim_threshold=-1.0)
+
+
+def _frames(seed, n):
+    return (np.random.default_rng(seed).random((n, H, W, 3)) * 255).astype(
+        np.float32)
+
+
+@pytest.fixture(scope="module")
+def nets():
+    """(JAX detector, JAX model, params, port detector, port model)."""
+    det_params = [mtcnn_params(spec, seed=i) for i, spec in enumerate(
+        (jmtcnn._PNET_SPEC, jmtcnn._RNET_SPEC, jmtcnn._ONET_SPEC))]
+    for p in det_params:                   # the JAX init's zero biases
+        for entry in p.values():
+            if "biases" in entry:
+                entry["biases"][:] = 0.0
+            if "alpha" in entry:
+                entry["alpha"][:] = 0.25
+    jdet = JMTCNNDetector(*[jmtcnn.load_npy_params(p) for p in det_params])
+    model = JEFMNet342(num_classes=4)
+    params = flax_params(model, 32, seed=0)
+    tdet = MTCNNDetector(*det_params, device="cpu")
+    tmodel = from_jax_params(params, device="cpu")
+    return jdet, model, params, tdet, tmodel
+
+
+@pytest.fixture(scope="module")
+def jax_pipeline(nets):
+    jdet, model, params, _, _ = nets
+    gallery = np.random.default_rng(5).normal(size=(5, 342))
+    return gallery, j_pipeline(jdet, model, {"params": params}, gallery, **KW)
+
+
+def test_device_stage1_matches_jax(nets):
+    jdet, _, _, tdet, _ = nets
+    frames = _frames(0, 2)
+    jfn = j_stage1(jdet.pnet_params, H, W, threshold=TH[0], with_counts=True)
+    tout, tdrop = make_device_stage1(tdet.pnet, H, W, threshold=TH[0],
+                                     with_counts=True, device="cpu")(frames)
+    for i in range(2):
+        jout, jdrop = (np.asarray(a) for a in jfn(jnp.asarray(frames[i])))
+        got = tout[i].numpy()
+        valid = np.isfinite(jout[:, 4])
+        assert valid.any()
+        np.testing.assert_array_equal(np.isfinite(got[:, 4]), valid)
+        assert int(tdrop[i]) == int(jdrop)
+        np.testing.assert_allclose(got[valid], jout[valid], atol=1e-4)
+        # no score within 1e-5 of the threshold: rounding cannot flip one
+        assert np.all(np.abs(jout[valid, 4] - TH[0]) > 1e-5)
+
+
+def test_device_cascade_matches_jax(nets):
+    jdet, _, _, tdet, _ = nets
+    frames = _frames(2, 2)
+    jfn = j_cascade(jdet.pnet_params, jdet.rnet_params, jdet.onet_params,
+                    H, W, thresholds=TH)
+    tboxes, tpts, tcounts = make_device_cascade(
+        tdet.pnet, tdet.rnet, tdet.onet, H, W, thresholds=TH,
+        device="cpu")(frames)
+    for i in range(2):
+        jboxes, jpts, jcounts = (np.asarray(a)
+                                 for a in jfn(jnp.asarray(frames[i])))
+        valid = np.isfinite(jboxes[:, 4])
+        assert valid.any()
+        np.testing.assert_array_equal(np.isfinite(tboxes[i, :, 4].numpy()),
+                                      valid)
+        np.testing.assert_array_equal(tcounts[i].numpy(), jcounts)
+        np.testing.assert_allclose(tboxes[i].numpy()[valid], jboxes[valid],
+                                   atol=1e-3)
+        np.testing.assert_allclose(tpts[i].numpy()[valid], jpts[valid],
+                                   atol=1e-3)
+        assert np.all(np.abs(jboxes[valid, 4] - TH[2]) > 1e-5)
+
+
+def _assert_same(got, want):
+    for key in ("found", "index", "cap_dropped"):
+        assert np.asarray(got[key]) == np.asarray(want[key]), key
+    np.testing.assert_allclose(np.asarray(got["box"]), np.asarray(want["box"]),
+                               atol=1e-3)
+    for key in ("similarity", "embedding"):
+        np.testing.assert_allclose(np.asarray(got[key]),
+                                   np.asarray(want[key]), atol=1e-4)
+
+
+def test_recognition_pipeline_matches_jax(nets, jax_pipeline):
+    _, _, _, tdet, tmodel = nets
+    gallery, jfn = jax_pipeline
+    tfn = make_recognition_pipeline(tdet, tmodel, gallery, device="cpu", **KW)
+    frame = _frames(0, 1)[0]
+    want = jfn(jnp.asarray(frame))
+    assert bool(want["found"])
+    got = {k: v.numpy() for k, v in tfn(frame).items()}
+    assert got["box"].shape == (4,) and got["embedding"].shape == (342,)
+    _assert_same(got, want)
+
+
+def test_multistream_pipeline_matches_jax(nets, jax_pipeline):
+    """Every stream of the port's batched pipeline equals the JAX
+    single-frame pipeline on that frame (which tests/test_fused_pipeline.py
+    pins to the JAX multistream one); the dynamic gallery, f32 or bf16,
+    with every row enrolled, gives the baked one's answers."""
+    _, _, _, tdet, tmodel = nets
+    gallery, jfn = jax_pipeline
+    frames = _frames(5, 3)
+    out = make_multistream_pipeline(tdet, tmodel, gallery, device="cpu",
+                                    **KW)(frames)
+    assert out["box"].shape == (3, 4) and out["embedding"].shape == (3, 342)
+    for i in range(3):
+        _assert_same({k: v[i].numpy() for k, v in out.items()},
+                     jfn(jnp.asarray(frames[i])))
+    dyn = make_multistream_pipeline(tdet, tmodel, dynamic_gallery=True,
+                                    device="cpu", **KW)
+    for dtype, atol in ((torch.float32, 1e-6), (torch.bfloat16, 1e-2)):
+        got = dyn(frames, normalize_gallery(gallery, dtype, device="cpu"), 5)
+        np.testing.assert_array_equal(got["index"].numpy(),
+                                      out["index"].numpy())
+        np.testing.assert_allclose(got["similarity"].numpy(),
+                                   out["similarity"].numpy(), atol=atol)
+
+
+def test_dynamic_gallery_rows_mask_padding(nets):
+    """Rows past ``rows`` never win, even when they would match best."""
+    _, _, _, tdet, tmodel = nets
+    frames = _frames(5, 2)
+    base = make_multistream_pipeline(tdet, tmodel, np.ones((1, 342)),
+                                     device="cpu", **KW)(frames)
+    emb = base["embedding"].numpy()
+    gallery = np.concatenate([np.random.default_rng(9).normal(size=(3, 342)),
+                              emb])
+    dyn = make_multistream_pipeline(tdet, tmodel, dynamic_gallery=True,
+                                    device="cpu", **KW)
+    gal_n = normalize_gallery(gallery, device="cpu")
+    full = dyn(frames, gal_n)
+    np.testing.assert_array_equal(full["index"].numpy(), [3, 4])
+    masked = dyn(frames, gal_n, 3)
+    assert (masked["index"].numpy() < 3).all()
+    none = dyn(frames, gal_n, 0)
+    np.testing.assert_array_equal(none["index"].numpy(), [-1, -1])
+    np.testing.assert_array_equal(none["similarity"].numpy(), [-2.0, -2.0])
+
+
+def test_serve_demo_runs_an_export_in_bf16(nets, tmp_path):
+    """``--export-dir`` loads a JAX export and serves it in bf16."""
+    from improving_face_recognition_performance_using_triplet_loss_tpu.serve.export import (
+        export_params,
+    )
+
+    _, _, params, _, _ = nets
+    export_params(str(tmp_path), params, model_name="efmnet342",
+                  feature_dim=342, input_hw=(32, 32))
+    res = serve_demo.main([
+        "--streams", "2", "--frames", "2", "--frame-size", "48", "48",
+        "--image-size", "32", "--device", "cpu", "--export-dir",
+        str(tmp_path), "--det-thresholds", "0.3", "0.3", "0.3"])
+    emb = res["out"]["embedding"]
+    assert emb.dtype == torch.float32 and emb.shape == (2, 342)
+    assert torch.isfinite(emb).all()
+
+
+def test_serve_demo_streams_runs_on_cpu(capsys):
+    res = serve_demo.main([
+        "--streams", "2", "--frames", "4", "--frame-size", "48", "48",
+        "--image-size", "32", "--device", "cpu", "--identities", "3",
+        "--det-thresholds", "0.3", "0.3", "0.3", "--dynamic-gallery",
+        "--gallery-dtype", "bf16"])
+    assert res["streams"] == 2 and res["dispatches"] == 2
+    assert res["out"]["embedding"].shape == (2, 342)
+    text = capsys.readouterr().out
+    assert "stream   1:" in text and "frames/s" in text
+    for argv in (["--frames", "4"], ["--streams", "2", "--model", "lightcnn9"],
+                 ["--streams", "2", "--video", "cam.avi"],
+                 ["--streams", "2", "--dynamic-gallery", "--gallery-dtype",
+                  "int8"]):
+        with pytest.raises(SystemExit, match="ROADMAP"):
+            serve_demo.main(argv + ["--device", "cpu"])
