@@ -2,11 +2,17 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
 Builds the port's hand-written kernels from ``csrc/`` (CUDA C++) and
-``ops/cuda/`` (Triton), holds each against its plain PyTorch version on the
-card at the shapes the serving path gives it, then drives the serving path
-itself, ``serve_demo --streams 16`` at 240x320 with EFMNet342 at 64x64 and
-random seeded weights, checks that every kernel launched there, and reruns
-the same frames and weights on the CPU to check the answers.
+``ops/cuda/`` (Triton) and holds each against its plain PyTorch version on
+the card at the shapes its path gives it. Then it drives the two paths of
+the port, each with the launch counts set to 0 just before it and read
+just after:
+
+- serving: ``serve_demo --streams 16`` at 240x320 with EFMNet342 at 64x64
+  and random seeded weights (kernels B5, B3, B2), rerun on the CPU with the
+  same frames and weights to check the answers;
+- head training: ``train_head --mining semi_hard_fused`` at batch 16384
+  over 342-d synthetic features (kernel B1), rerun with the plain
+  ``--mining semi_hard`` on the card to check the losses and cosines.
 
     python3 chip_smoke.py
 
@@ -22,6 +28,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 
@@ -35,6 +42,13 @@ MEM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 
 STREAMS, FRAME_HW, IMAGE = 16, (240, 320), 64
+# the head slice: batch 16384 (the reference's), a 32768-row mining pool,
+# 342-d features into a 128-d head, a 65,536-row store of 4,096 identities
+HEAD_BATCH, FEAT_DIM, EMB_DIM = 16384, 342, 128
+HEAD_IDS, HEAD_PER_ID, HEAD_EPOCHS = 4096, 16, 2
+
+# the kernels each path launches (the counts are read per path)
+PATH_KERNELS = {"slice": ("nms", "stem", "efm3"), "head": ("mining",)}
 
 
 def slice_argv(frames: int, device: str) -> list[str]:
@@ -299,14 +313,11 @@ def phase_slice(ctx):
         serve_demo,
     )
 
-    counters = ctx["counters"]
-    for c in counters.values():
+    for c in ctx["counters"].values():
         c.reset()
     res = serve_demo.main(slice_argv(64, "cuda"))
     torch.cuda.synchronize()
-    launches = {name: c.count for name, c in counters.items()}
-    for name, n in launches.items():
-        ctx["kernels"][name]["launches"] = n
+    launches = read_launches(ctx, "slice")
     dispatches = res["dispatches"] + 1
     out = {k: v.cpu() for k, v in res["out"].items()}
     # the same seed gives the same weights and frames on the CPU
@@ -343,8 +354,226 @@ def phase_slice(ctx):
             "cap_dropped": out["cap_dropped"].tolist()}
 
 
+def read_launches(ctx, path: str) -> dict[str, int]:
+    """The launch counts of ``path``'s kernels, recorded for the kernels
+    line."""
+    launches = {k: ctx["counters"][k].count for k in PATH_KERNELS[path]}
+    for name, n in launches.items():
+        ctx["kernels"][name]["launches"] = n
+    return launches
+
+
+def _int_rows(torch, rng, b, n, d, ids, *, pos_sq=None, one_label=False):
+    """Mining inputs with coordinates in {-1, 0, 1}: every product and sum
+    is exact in float32, so the kernel and the plain version must pick the
+    same index, ties (which are common) included."""
+    import numpy as np
+
+    anc = rng.integers(-1, 2, (b, d)).astype(np.float32)
+    pool = rng.integers(-1, 2, (n, d)).astype(np.float32)
+    ps = (rng.integers(0, 2 * d, b).astype(np.float32) if pos_sq is None
+          else np.full(b, pos_sq, np.float32))
+    al, pl = rng.integers(0, ids, b), rng.integers(0, ids, n)
+    if one_label:
+        al[:], pl[:] = 0, 0
+    return [torch.from_numpy(x).cuda() for x in (anc, ps, al, pool, pl)]
+
+
+def head_path_inputs(torch, seed: int = 0):
+    """What the head step hands kernel B1 at the path shape: one
+    ``PairBatcher`` batch of 16384 anchors and positives from the synthetic
+    store, through a random 342->128 head, L2-normalized; the pool is
+    ``[anchors | positives]``."""
+    import numpy as np
+
+    from improving_face_recognition_performance_using_triplet_loss_tpu_torch.data import (
+        PairBatcher,
+        synthetic_features,
+    )
+    from improving_face_recognition_performance_using_triplet_loss_tpu_torch.models.heads import (
+        LinearHead,
+    )
+    from improving_face_recognition_performance_using_triplet_loss_tpu_torch.ops.distances import (
+        l2_normalize,
+    )
+
+    feats, labels = synthetic_features(num_ids=HEAD_IDS, per_id=HEAD_PER_ID,
+                                       dim=FEAT_DIM, seed=seed)
+    anchor, positive, lab = next(iter(PairBatcher(feats, labels, HEAD_BATCH,
+                                                  seed=seed)))
+    head = LinearHead(FEAT_DIM, EMB_DIM,
+                      generator=torch.Generator().manual_seed(seed)).cuda()
+    with torch.no_grad():
+        x = torch.from_numpy(np.concatenate([anchor, positive])).cuda()
+        pool_n = l2_normalize(head(x))
+    lab = torch.from_numpy(lab).cuda().to(torch.int32)
+    anc_n = pool_n[:HEAD_BATCH]
+    pos_sq = ((anc_n - pool_n[HEAD_BATCH:]) ** 2).sum(1)
+    return anc_n, pos_sq, lab, pool_n, torch.cat([lab, lab])
+
+
+def phase_mining(ctx):
+    import numpy as np
+    import torch
+
+    from improving_face_recognition_performance_using_triplet_loss_tpu_torch.ops.cuda import (
+        mining,
+    )
+    from improving_face_recognition_performance_using_triplet_loss_tpu_torch.ops.distances import (
+        pairwise_sq_l2,
+    )
+
+    rng = np.random.default_rng(5)
+    b, n = HEAD_BATCH, 2 * HEAD_BATCH
+    exact = {"64x128x32": _int_rows(torch, rng, 64, 128, 32, 10),
+             "16x16x32": _int_rows(torch, rng, 16, 16, 32, 10),
+             "1000x3000x128": _int_rows(torch, rng, 1000, 3000, EMB_DIM, 50),
+             "3x5x3": _int_rows(torch, rng, 3, 5, 3, 2),
+             "fallback": _int_rows(torch, rng, 256, 700, 64, 20,
+                                   pos_sq=1e6),
+             "one_label": _int_rows(torch, rng, 100, 300, 16, 1,
+                                    one_label=True),
+             "path_shape_int": _int_rows(torch, rng, b, n, EMB_DIM, HEAD_IDS)}
+    cases = {}
+    for name, x in exact.items():
+        got, want = mining.semi_hard_mining(*x), mining.semi_hard_mining_plain(*x)
+        torch.cuda.synchronize()
+        cases[name] = {"shape": [x[0].shape[0], x[3].shape[0], x[0].shape[1]],
+                       "mismatches": int((got != want).sum())}
+    exact_ok = all(c["mismatches"] == 0 for c in cases.values())
+
+    # the path shape on real head outputs: summation orders differ from
+    # cuBLAS's, so a near-tie may go the other way; hold each pick to the
+    # plain pick's distance (recomputed in float64) and side of pos_sq
+    anc, pos_sq, al, pool, pl = x = head_path_inputs(torch)
+    got = mining.semi_hard_mining(*x).long()
+    want = mining.semi_hard_mining_plain(*x).long()
+    dist = lambda idx: ((anc.double() - pool[idx].double()) ** 2).sum(1)  # noqa: E731
+    d_got, d_want = dist(got), dist(want)
+    side_differs = (d_got > pos_sq.double()) != (d_want > pos_sq.double())
+    near = torch.zeros_like(side_differs)
+    for i in side_differs.nonzero().flatten().tolist():
+        sq = pairwise_sq_l2(anc[i:i + 1], pool)[0]
+        near[i] = bool(((sq - pos_sq[i]).abs() < 1e-5)[pl != al[i]].any())
+    gap = (d_got - d_want).abs()
+    checks = {"exact_cases_equal": exact_ok,
+              "picks_are_negatives": bool((pl[got] != al).all()),
+              "distance_within_1e-5": bool(((gap <= 1e-5) | near).all()),
+              "same_side_of_pos_sq": bool((~side_differs | near).all())}
+    ms = time_ms(torch, lambda: mining.semi_hard_mining(*x), 20)
+    plain_ms = time_ms(torch, lambda: mining.semi_hard_mining_plain(*x), 5,
+                       warmup=2)
+    gemm_ms = time_ms(torch, lambda: anc @ pool.T, 20)
+    d = anc.shape[1]
+    nbytes = (b * d + n * d) * 4 + b * 4 + (b + n) * 4 + b * 4
+    ops = 2 * b * n * d + 8 * b * n + 2 * (b + n) * d
+    bound_ms, bound_by = bound(nbytes, ops)
+    ctx["kernels"]["mining"].update(
+        max_abs_err=float(gap.max()), ms=ms, plain_ms=plain_ms,
+        bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+    return {"ok": all(checks.values()), "checks": checks,
+            "tolerance": "indices exact on exact inputs; at the path shape "
+                         "pick distance within 1e-5 (float64) and same side "
+                         "of pos_sq unless a candidate is within 1e-5 of it",
+            "exact_cases": cases, "path_shape": [b, n, d],
+            "path_index_differences": int((got != want).sum()),
+            "path_max_distance_gap": float(gap.max()),
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "cublas_f32_gemm_ms": gemm_ms}
+
+
+def _epoch_cos_means(csv: str, rows_per_epoch: int):
+    import numpy as np
+
+    data = np.loadtxt(csv, dtype=np.float64, ndmin=2)
+    epochs = data.reshape(-1, rows_per_epoch, 2)
+    return data.shape[0], epochs.mean(1)
+
+
+def phase_head(ctx):
+    import numpy as np
+    import torch
+
+    from improving_face_recognition_performance_using_triplet_loss_tpu_torch.cli import (
+        train_head,
+    )
+    from improving_face_recognition_performance_using_triplet_loss_tpu_torch.data import (
+        save_feature_store,
+        split_identities,
+        synthetic_features,
+    )
+    from improving_face_recognition_performance_using_triplet_loss_tpu_torch.serve.export import (
+        load_exported_params,
+    )
+
+    feats, labels = synthetic_features(num_ids=HEAD_IDS, per_id=HEAD_PER_ID,
+                                       dim=FEAT_DIM, seed=0)
+    train_mask, test_mask = split_identities(labels, 0.7)
+    train_steps = int(train_mask.sum()) // HEAD_BATCH
+    eval_steps = int(test_mask.sum()) // HEAD_BATCH
+    with tempfile.TemporaryDirectory() as tmp:
+        store = {}
+        for name, mask in (("train", train_mask), ("test", test_mask)):
+            store[name] = os.path.join(tmp, f"{name}.npz")
+            save_feature_store(store[name], feats[mask], labels[mask])
+
+        def run(mining_mode):
+            out = os.path.join(tmp, mining_mode)
+            state, hist = train_head.main([
+                "--features", store["train"], "--test-features",
+                store["test"], "--batch-size", str(HEAD_BATCH), "--epochs",
+                str(HEAD_EPOCHS), "--mining", mining_mode, "--device", "cuda",
+                "--out-dir", out])
+            torch.cuda.synchronize()
+            rows, cos = _epoch_cos_means(
+                os.path.join(out, "cosine_similarity.csv"),
+                train_steps * HEAD_BATCH)
+            return out, hist, rows, cos
+
+        for c in ctx["counters"].values():
+            c.reset()
+        out, hist, rows, cos = run("semi_hard_fused")
+        launches = read_launches(ctx, "head")
+        params, _, manifest = load_exported_params(os.path.join(out,
+                                                                "export"))
+        _, plain_hist, plain_rows, plain_cos = run("semi_hard")
+
+    losses = [s["loss"] for h in hist for s in h.steps]
+    plain_losses = [s["loss"] for h in plain_hist for s in h.steps]
+    rel = [abs(a - b) / max(abs(b), 1e-12)
+           for a, b in zip(losses, plain_losses)]
+    cos_gap = float(np.abs(cos - plain_cos).max())
+    steps = HEAD_EPOCHS * (train_steps + eval_steps)
+    checks = {
+        "launches_equal_steps": launches["mining"] == steps,
+        "losses_finite": bool(np.isfinite(losses + [h.valid["loss"]
+                                                    for h in hist]).all()),
+        "csv_rows": rows == HEAD_EPOCHS * train_steps * HEAD_BATCH,
+        "export_loads": (manifest["model"] == "linear_head"
+                         and params["proj"]["kernel"].shape
+                         == (FEAT_DIM, EMB_DIM)),
+        "plain_run_same_steps": len(plain_losses) == len(losses),
+        "epoch_cos_means_atol_1e-4": cos_gap <= 1e-4,
+        "step_loss_rtol_1e-2": max(rel) <= 1e-2,
+    }
+    step_s = [s["seconds"] for h in hist for s in h.steps]
+    plain_step_s = [s["seconds"] for h in plain_hist for s in h.steps]
+    return {"ok": all(checks.values()), "checks": checks,
+            "launches": launches, "steps": steps,
+            "train_steps_per_epoch": train_steps,
+            "eval_steps_per_epoch": eval_steps,
+            "losses": losses, "plain_losses": plain_losses,
+            "valid_loss": [h.valid["loss"] for h in hist],
+            "epoch_cos_means": cos.tolist(),
+            "plain_epoch_cos_means": plain_cos.tolist(),
+            "max_epoch_cos_mean_gap": cos_gap, "max_step_loss_rel_gap": max(rel),
+            "train_step_s": step_s, "plain_train_step_s": plain_step_s,
+            "card": torch.cuda.get_device_name(0)}
+
+
 PHASES = {"build": phase_build, "nms": phase_nms, "stem": phase_stem,
-          "efm3": phase_efm3, "slice": phase_slice}
+          "efm3": phase_efm3, "mining": phase_mining, "slice": phase_slice,
+          "head": phase_head}
 
 
 def main() -> int:
@@ -367,6 +596,7 @@ def main() -> int:
 
     from improving_face_recognition_performance_using_triplet_loss_tpu_torch.ops.cuda import (
         efm3,
+        mining,
         nms,
         stem,
     )
@@ -374,7 +604,7 @@ def main() -> int:
     pkg = os.path.join(PKG, "")
     ctx = {
         "counters": {"nms": nms.launches, "stem": stem.launches,
-                     "efm3": efm3.launches},
+                     "efm3": efm3.launches, "mining": mining.launches},
         "kernels": {
             "nms": {"name": "nms", "route": "cuda",
                     "source": pkg + "csrc/nms.cu",
@@ -385,6 +615,10 @@ def main() -> int:
             "efm3": {"name": "efm3", "route": "triton",
                      "source": pkg + "ops/cuda/efm3.py",
                      "replaces": JAX_PKG + "/ops/pallas/mfm_kernel.py:32"},
+            "mining": {"name": "mining", "route": "cuda",
+                       "source": pkg + "csrc/mining.cu",
+                       "replaces": JAX_PKG
+                       + "/ops/pallas/triplet_kernel.py:83"},
         },
     }
     failed = []

@@ -1,4 +1,5 @@
-"""PyTorch + CUDA port of the facejax serving path.
+"""PyTorch + CUDA port of facejax: the serving path and triplet-head
+training.
 
 A second package beside the JAX reference
 (``improving_face_recognition_performance_using_triplet_loss_tpu``). It
@@ -6,14 +7,21 @@ imports ``torch`` and numpy only, never ``jax``, ``flax`` or the JAX
 package, and mirrors that package's subpackages so every module has one
 JAX twin:
 
-- ``ops``     — MFM/EFM activations, gallery distances, box ops and NMS,
-                the space-to-depth stem; ``ops/cuda/`` holds the wrappers of
-                the hand-written Hopper kernels whose sources live in
-                ``csrc/`` (CUDA C++) or in the wrapper itself (Triton).
-- ``models``  — MTCNN PNet/RNet/ONet and the 342-d EFM symbol ladder.
+- ``ops``     — MFM/EFM activations, distances, negative mining, box ops
+                and NMS, the space-to-depth stem; ``ops/cuda/`` holds the
+                wrappers of the hand-written Hopper kernels whose sources
+                live in ``csrc/`` (CUDA C++) or in the wrapper itself
+                (Triton).
+- ``models``  — MTCNN PNet/RNet/ONet, the 342-d EFM symbol ladder and the
+                linear triplet head.
+- ``losses``, ``train`` — the triplet loss, the head's train and eval
+                steps, optimizer, checkpoints and epoch loop.
+- ``data``, ``eval`` — pair batching, feature stores, synthetic features;
+                the cosine-similarity sink and plots.
 - ``detect``  — the batched on-device MTCNN cascade.
 - ``serve``   — weight export/import and the fused recognition pipelines.
-- ``cli``     — ``serve_demo --streams N``.
+- ``cli``     — ``serve_demo --streams N``, ``train_head``, ``eval_cos``,
+                ``draw_cos``, ``slice_dataset``.
 
 Every entry point runs on ``cuda`` unless the caller passes
 ``device="cpu"``; with no CUDA present the default device raises.

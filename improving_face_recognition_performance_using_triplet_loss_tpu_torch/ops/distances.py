@@ -1,7 +1,9 @@
-"""Row normalization and gallery cosine similarities.
+"""Row normalization, pairwise distances and gallery cosine similarities.
 
-Port of the JAX package's ``ops/distances.py`` (the part the serving slice
-runs). Galleries are stored L2-normalized in f32 or bf16; the int8
+Port of the JAX package's ``ops/distances.py``. The pairwise products run
+in full float32 under PyTorch's default matmul precision (TF32 off), as the
+JAX package computes them at ``Precision.HIGHEST``: a TF32 product would
+flip near-tie mining choices. Galleries are stored L2-normalized in f32 or bf16; the int8
 127-scale storage is not ported yet (ROADMAP.md A, item "int8 galleries").
 """
 
@@ -57,3 +59,27 @@ def gallery_sims(emb: torch.Tensor, gallery_n: torch.Tensor) -> torch.Tensor:
     if gallery_n.dtype == torch.int8:
         raise NotImplementedError(_INT8_TODO)
     return emb.float() @ gallery_n.float().T
+
+
+def pairwise_sq_l2(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """[N, D] x [M, D] -> [N, M] squared euclidean distances, through the
+    ``|a|^2 + |b|^2 - 2ab`` identity (one matmul), clamped at 0."""
+    a2 = torch.sum(torch.square(a), dim=-1, keepdim=True)          # [N, 1]
+    b2 = torch.sum(torch.square(b), dim=-1, keepdim=True).T        # [1, M]
+    ab = a @ b.T                                                   # [N, M]
+    return torch.clamp_min(a2 + b2 - 2.0 * ab, 0.0)
+
+
+def pairwise_cosine(a: torch.Tensor, b: torch.Tensor,
+                    eps: float = 1e-12) -> torch.Tensor:
+    """[N, D] x [M, D] -> [N, M] cosine similarities."""
+    return l2_normalize(a, eps=eps) @ l2_normalize(b, eps=eps).T
+
+
+def rowwise_cosine(a: torch.Tensor, b: torch.Tensor,
+                   eps: float = 1e-12) -> torch.Tensor:
+    """Row-i-vs-row-i cosine similarity, [N, D] x [N, D] -> [N]."""
+    dot = torch.sum(a * b, dim=-1)
+    na = torch.sqrt(torch.sum(torch.square(a), dim=-1))
+    nb = torch.sqrt(torch.sum(torch.square(b), dim=-1))
+    return dot / torch.clamp(na * nb, min=eps)

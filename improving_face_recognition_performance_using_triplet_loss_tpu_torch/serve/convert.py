@@ -4,7 +4,9 @@
 port's modules: a flax ``EFMNet342`` params tree (or its ``{"params": ...}``
 variables), a JAX export directory (``weights.npz`` + ``manifest.json``),
 or an MTCNN ``{layer: {weights, biases, alpha}}`` dict. ``export_model``
-writes a port model back in the export format.
+writes a port model back in the export format. ``head_from_jax_params`` /
+``head_to_jax_params`` carry a ``LinearHead``'s ``{"proj": {"kernel"}}``
+tree both ways.
 """
 
 from __future__ import annotations
@@ -14,8 +16,10 @@ import os
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from ..models import mtcnn as nets
 from ..models.efm_symbol import EFMNet342, build_efmnet342, fc1_side
+from ..models.heads import LinearHead
 from .export import export_params, load_exported_params
 
 _ROADMAP_MODELS = ("only efmnet342 is ported; lightcnn29 and lightcnn9 are "
@@ -67,3 +71,18 @@ def export_model(out_dir: str, model: EFMNet342) -> str:
     return export_params(out_dir, model.flax_params(), model_name="efmnet342",
                          feature_dim=model.feature_dim,
                          input_hw=(size, size))
+
+
+def head_from_jax_params(params, *, device=None) -> LinearHead:
+    """The port's ``LinearHead`` holding a JAX ``LinearHead`` params tree
+    ``{"proj": {"kernel": [in, out]}}``, on ``device`` (``cuda`` unless
+    given)."""
+    params = _to_numpy(params)
+    d_in, d_out = np.asarray(params["proj"]["kernel"]).shape
+    head = LinearHead(d_in, d_out).load_flax_params(params)
+    return head.to(resolve_device(device))
+
+
+def head_to_jax_params(head: LinearHead) -> dict:
+    """The JAX ``LinearHead`` params tree (numpy) of a port head."""
+    return head.flax_params()

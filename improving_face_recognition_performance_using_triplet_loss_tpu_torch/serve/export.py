@@ -38,9 +38,10 @@ def _unflatten(flat: dict[str, np.ndarray]) -> dict:
 
 
 def export_params(out_dir: str, params: Any, *, model_name: str,
-                  feature_dim: int, input_hw: tuple[int, int]) -> str:
+                  feature_dim: int, input_hw: tuple[int, int],
+                  input_channels: int = 1) -> str:
     """Write ``weights.npz`` + ``manifest.json`` of a flax-layout params
-    tree (nested dicts of arrays) of a grayscale model under ``out_dir``."""
+    tree (nested dicts of arrays) under ``out_dir``."""
     os.makedirs(out_dir, exist_ok=True)
     flat = _flatten(params, "params/")
     np.savez(os.path.join(out_dir, "weights.npz"), **flat)
@@ -49,7 +50,7 @@ def export_params(out_dir: str, params: Any, *, model_name: str,
         "model": model_name,
         "feature_dim": int(feature_dim),
         "input": {"height": input_hw[0], "width": input_hw[1],
-                  "channels": 1, "scale": "1/255",
+                  "channels": input_channels, "scale": "1/255",
                   "layout": "NHWC"},
         "embedding_normalization": "l2",
         "tensors": sorted(flat.keys()),

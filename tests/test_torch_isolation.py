@@ -19,7 +19,9 @@ from improving_face_recognition_performance_using_triplet_loss_tpu_torch import 
     device as tdevice,
 )
 from improving_face_recognition_performance_using_triplet_loss_tpu_torch.cli import (
+    eval_cos,
     serve_demo,
+    train_head,
 )
 from improving_face_recognition_performance_using_triplet_loss_tpu_torch.detect import (
     MTCNNDetector,
@@ -68,20 +70,26 @@ def test_port_imports_without_jax_or_triton():
     mods = set(out[2:])
     for name in ("ops.cuda.nms", "ops.cuda.stem", "ops.cuda.efm3",
                  "ops.cuda._build", "cli.serve_demo", "serve.pipeline",
-                 "serve.convert", "detect.device_cascade"):
+                 "serve.convert", "detect.device_cascade", "ops.cuda.mining",
+                 "ops.mining", "train.steps", "train.loops",
+                 "train.checkpoint", "cli.train_head", "cli.eval_cos"):
         assert f"{PORT}.{name}" in mods, name
     assert int(out[1]) == len(mods) >= 20
 
 
 @pytest.mark.parametrize("entry", ["resolve_device", "detector", "model",
-                                   "serve_demo"])
-def test_default_device_without_cuda_raises(monkeypatch, entry):
+                                   "serve_demo", "train_head", "eval_cos"])
+def test_default_device_without_cuda_raises(monkeypatch, tmp_path, entry):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     call = {
         "resolve_device": lambda: tdevice.resolve_device(),
         "detector": lambda: MTCNNDetector(),
         "model": lambda: build_efmnet342(4, image_size=32),
         "serve_demo": lambda: serve_demo.main(["--streams", "1"]),
+        "train_head": lambda: train_head.main([
+            "--synthetic", "--epochs", "1", "--out-dir", str(tmp_path)]),
+        "eval_cos": lambda: eval_cos.main([
+            "--synthetic", "--out-dir", str(tmp_path)]),
     }[entry]
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         call()
