@@ -3,18 +3,25 @@
 
 Builds the port's hand-written kernels from ``csrc/`` (CUDA C++) and
 ``ops/cuda/`` (Triton) and holds each against its plain PyTorch version on
-the card at the shapes its path gives it. Then it drives the two paths of
-the port, each with the launch counts set to 0 just before it and read
-just after:
+the card at the shapes its path gives it. Then it drives the paths of the
+port, each with the launch counts set to 0 just before it and read just
+after:
 
 - serving: ``serve_demo --streams 16`` at 240x320 with EFMNet342 at 64x64
   and random seeded weights (kernels B5, B3, B2), rerun on the CPU with the
   same frames and weights to check the answers;
 - head training: ``train_head --mining semi_hard_fused`` at batch 16384
   over 342-d synthetic features (kernel B1), rerun with the plain
-  ``--mining semi_hard`` on the card to check the losses and cosines.
+  ``--mining semi_hard`` on the card to check the losses and cosines;
+- extraction: ``extract_features`` at batch 128 over synthetic-face stores,
+  LightCNN9 at 128x128 (kernel B6) and on 112x96 crops (kernel B4), and
+  LightCNN29 at 128x128 (B3, B2), each checked against a CPU rerun of its
+  first rows, plus a ``--bf16`` LightCNN9 run held to the f32 one;
+- LightCNN9 serving: ``serve_demo --streams 16 --model lightcnn9
+  --image-size 128`` at 240x320 (B5, B6), rerun on the CPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                  # every phase
+    python3 chip_smoke.py front9 extract   # the build and these phases
 
 Prints one JSON line per phase, a ``{"kernels": [...]}`` line, the card's
 name and power limit, and last ``{"ok": true, "device": {...}}``. Exits
@@ -48,7 +55,9 @@ HEAD_BATCH, FEAT_DIM, EMB_DIM = 16384, 342, 128
 HEAD_IDS, HEAD_PER_ID, HEAD_EPOCHS = 4096, 16, 2
 
 # the kernels each path launches (the counts are read per path)
-PATH_KERNELS = {"slice": ("nms", "stem", "efm3"), "head": ("mining",)}
+PATH_KERNELS = {"slice": ("nms", "stem", "efm3"), "head": ("mining",),
+                "extract": ("front9", "stem2", "stem", "efm3"),
+                "serve9": ("nms", "front9")}
 
 
 def slice_argv(frames: int, device: str) -> list[str]:
@@ -306,27 +315,14 @@ def phase_efm3(ctx):
             "shapes": shapes}
 
 
-def phase_slice(ctx):
-    import torch
-
-    from improving_face_recognition_performance_using_triplet_loss_tpu_torch.cli import (
-        serve_demo,
-    )
-
-    for c in ctx["counters"].values():
-        c.reset()
-    res = serve_demo.main(slice_argv(64, "cuda"))
-    torch.cuda.synchronize()
-    launches = read_launches(ctx, "slice")
-    dispatches = res["dispatches"] + 1
-    out = {k: v.cpu() for k, v in res["out"].items()}
-    # the same seed gives the same weights and frames on the CPU
-    cpu = serve_demo.main(slice_argv(STREAMS, "cpu"))["out"]
+def _serving_checks(torch, out, cpu, dim: int) -> tuple[dict, dict]:
+    """The serving path's answers on the card against the CPU rerun of the
+    same frames and weights: found, index and cap_dropped exact, box at
+    1e-2, embedding at 1e-3."""
     found = out["found"]
     checks = {
-        "launched": all(n > 0 for n in launches.values()),
         "shapes": (tuple(out["box"].shape) == (STREAMS, 4)
-                   and tuple(out["embedding"].shape) == (STREAMS, 342)),
+                   and tuple(out["embedding"].shape) == (STREAMS, dim)),
         "finite": bool(torch.isfinite(out["embedding"]).all()),
         "unit_norm": bool(((out["embedding"][found].norm(dim=-1) - 1).abs()
                            < 1e-4).all()),
@@ -343,23 +339,69 @@ def phase_slice(ctx):
         if both.any() else 0.0
     checks["box_atol_1e-2"] = box_err <= 1e-2
     checks["embedding_atol_1e-3"] = emb_err <= 1e-3
-    return {"ok": all(checks.values()), "checks": checks,
-            "frames_per_s": res["fps"], "first_dispatch_s": res["first_s"],
-            "dispatches": dispatches, "found": int(found.sum()),
+    return checks, {"found": int(found.sum()),
+                    "box_max_err_vs_cpu": box_err,
+                    "embedding_max_err_vs_cpu": emb_err,
+                    "cap_dropped": out["cap_dropped"].tolist()}
+
+
+def _serve(ctx, path: str, argv, dim: int) -> dict:
+    """serve_demo on the card with the launch counts of ``path`` read
+    around it, then on the CPU with the same seed (same weights and
+    frames), held to :func:`_serving_checks`."""
+    import torch
+
+    from improving_face_recognition_performance_using_triplet_loss_tpu_torch.cli import (
+        serve_demo,
+    )
+
+    for c in ctx["counters"].values():
+        c.reset()
+    res = serve_demo.main(argv("cuda"))
+    torch.cuda.synchronize()
+    launches = read_launches(ctx, path)
+    dispatches = res["dispatches"] + 1
+    out = {k: v.cpu() for k, v in res["out"].items()}
+    cpu = serve_demo.main(argv("cpu"))["out"]
+    checks, report = _serving_checks(torch, out, cpu, dim)
+    checks["launched"] = all(n > 0 for n in launches.values())
+    return {"checks": checks, "frames_per_s": res["fps"],
+            "first_dispatch_s": res["first_s"], "dispatches": dispatches,
             "launches": launches,
             "launches_per_dispatch": {k: v / dispatches
                                       for k, v in launches.items()},
-            "box_max_err_vs_cpu": box_err,
-            "embedding_max_err_vs_cpu": emb_err,
-            "cap_dropped": out["cap_dropped"].tolist()}
+            **report}
+
+
+def phase_slice(ctx):
+    r = _serve(ctx, "slice", lambda dev: slice_argv(
+        STREAMS if dev == "cpu" else 64, dev), 342)
+    return {"ok": all(r["checks"].values()), **r}
+
+
+def serve9_argv(frames: int, device: str) -> list[str]:
+    """serve_demo's arguments for LightCNN9 serving: the slice's 16 streams
+    of 240x320 frames, LightCNN9 on 128x128 crops (its published input)."""
+    return [
+        "--streams", str(STREAMS), "--frames", str(frames),
+        "--frame-size", str(FRAME_HW[0]), str(FRAME_HW[1]),
+        "--image-size", "128", "--model", "lightcnn9", "--identities",
+        "1000", "--det-thresholds", "0.3", "0.3", "0.3", "--device", device]
+
+
+def phase_serve9(ctx):
+    r = _serve(ctx, "serve9", lambda dev: serve9_argv(
+        STREAMS if dev == "cpu" else 2 * STREAMS, dev), 256)
+    r["checks"]["front9_once_per_dispatch"] = (
+        r["launches"]["front9"] == r["dispatches"])
+    return {"ok": all(r["checks"].values()), **r}
 
 
 def read_launches(ctx, path: str) -> dict[str, int]:
-    """The launch counts of ``path``'s kernels, recorded for the kernels
-    line."""
+    """The launch counts of ``path``'s kernels; the kernels line keeps each
+    kernel's count from the first path run that launched it."""
     launches = {k: ctx["counters"][k].count for k in PATH_KERNELS[path]}
-    for name, n in launches.items():
-        ctx["kernels"][name]["launches"] = n
+    read_launches_from(ctx, launches)
     return launches
 
 
@@ -571,12 +613,306 @@ def phase_head(ctx):
             "card": torch.cuda.get_device_name(0)}
 
 
+# LightCNN9's front-half widths: conv1 96 -> 48, conv2a 96 -> 48, conv2
+# 192 -> 96 (the JAX package's models/lightcnn.py::LightCNN9)
+C1, C2A, C2 = 96, 96, 192
+EXTRACT_BATCH = 128
+# the least cosine between an embedding of the --bf16 extraction and the
+# f32 one: the JAX package's own bf16 LightCNN9 stays above 0.99995 on the
+# CPU (32-128 px, random weights, synthetic faces;
+# tests/test_torch_lightcnn.py), and the bound leaves 20x that gap
+BF16_COS_MIN = 0.999
+
+
+def front9_params(torch, gen, c1=C1, c2a=C2A, c2=C2):
+    """Random conv1/conv2a/conv2 weights in the flax layout (HWIO), scaled
+    like tests/test_pallas_kernels.py::_front9_params, on the card."""
+    def t(shape, s):
+        return (torch.randn(*shape, generator=gen) * s).cuda()
+
+    return {"conv1": {"kernel": t((5, 5, 1, c1), 0.1), "bias": t((c1,), 0.1)},
+            "conv2a": {"kernel": t((1, 1, c1 // 2, c2a), 0.1),
+                       "bias": t((c2a,), 0.1)},
+            "conv2": {"kernel": t((3, 3, c2a // 2, c2), 0.05),
+                      "bias": t((c2,), 0.1)}}
+
+
+def _nchw_conv(F, x, kernel, bias, padding):
+    return F.conv2d(x, kernel.permute(3, 2, 0, 1), bias, padding=padding)
+
+
+def phase_front9(ctx):
+    import torch
+    import torch.nn.functional as F
+
+    from improving_face_recognition_performance_using_triplet_loss_tpu_torch.ops import (
+        mfm,
+    )
+    from improving_face_recognition_performance_using_triplet_loss_tpu_torch.ops.cuda import (
+        front9,
+    )
+
+    gen = torch.Generator().manual_seed(6)
+    params = front9_params(torch, gen)
+    cases = {"path_128x128x128": (EXTRACT_BATCH, 128),
+             "tile_edge_2x68x68": (2, 68), "batch1_128": (1, 128),
+             "small_3x12x12": (3, 12)}
+    out, worst = {}, 0.0
+    for name, (b, hw) in cases.items():
+        x = torch.rand(b, hw, hw, 1, generator=gen).cuda()
+        for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
+            xs = x.to(dtype)
+            got = front9.front9_chain(xs, params).float()
+            want = front9.front9_plain(xs, params).float()
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            if dtype == torch.float32:
+                worst = max(worst, err)
+            # a comparison of outputs that are all zero would prove nothing
+            mean_abs = float(want.abs().mean())
+            out[f"{name}_{str(dtype).split('.')[1]}"] = {
+                "max_abs_err": err, "tolerance": tol, "mean_abs": mean_abs,
+                "ok": bool(torch.allclose(got, want, rtol=tol, atol=tol))
+                and mean_abs > 1e-2, "shape": list(got.shape)}
+    b, hw = cases["path_128x128x128"]
+    x = torch.rand(b, hw, hw, 1, generator=gen).cuda()
+    packed = front9.pack_front9_weights(params, torch.float32)
+    xn = x.permute(0, 3, 1, 2)
+    p = {k: (v["kernel"], v["bias"]) for k, v in params.items()}
+
+    def library():
+        # cuDNN composite of the same layers (TF32 off)
+        y = F.max_pool2d(mfm.mfm2(_nchw_conv(F, xn, *p["conv1"], 2), 1), 2, 2)
+        y = mfm.mfm2(_nchw_conv(F, y, *p["conv2a"], 0), 1)
+        y = mfm.mfm2(_nchw_conv(F, y, *p["conv2"], 1), 1)
+        return F.max_pool2d(y, 2, 2)
+
+    lib_err = float((library().permute(0, 2, 3, 1)
+                     - front9.front9_plain(x, params)).abs().max())
+    ms = time_ms(torch, lambda: front9.front9_chain(x, params, packed), 20)
+    plain_ms = time_ms(torch, lambda: front9.front9_plain(x, params), 10)
+    library_ms = time_ms(torch, library, 10)
+    h2 = hw // 2
+    ops = 2 * b * (hw * hw * 25 * C1 + h2 * h2 * (C1 // 2) * C2A
+                   + h2 * h2 * 9 * (C2A // 2) * C2)
+    wbytes = sum(v.numel() for d in params.values() for v in d.values()) * 4
+    nbytes = x.numel() * 4 + wbytes + b * (hw // 4) ** 2 * (C2 // 2) * 4
+    bound_ms, bound_by = bound(nbytes, ops)
+    ctx["kernels"]["front9"].update(
+        max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+        bound_by=bound_by, library_ms=library_ms)
+    return {"ok": all(v["ok"] for v in out.values()) and lib_err < 1e-4,
+            "cases": out, "tile": 8,
+            "smem_bytes_per_cta": front9.smem_bytes(C1, C2A),
+            "library": "cuDNN conv2d x3 + mfm2 + max_pool2d x2, f32",
+            "library_vs_plain_max_abs_err": lib_err,
+            "path_shape": [b, hw, hw, 1], "gflop": ops / 1e9, "ms": ms,
+            "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": bound_ms, "tflops": ops / ms / 1e9}
+
+
+def phase_stem2(ctx):
+    import torch
+    import torch.nn.functional as F
+
+    from improving_face_recognition_performance_using_triplet_loss_tpu_torch.ops import (
+        mfm,
+    )
+    from improving_face_recognition_performance_using_triplet_loss_tpu_torch.ops.cuda import (
+        stem,
+    )
+
+    gen = torch.Generator().manual_seed(7)
+    params = front9_params(torch, gen)
+    w, bias = params["conv1"]["kernel"], params["conv1"]["bias"]
+    w2, bias2 = params["conv2a"]["kernel"], params["conv2a"]["bias"]
+    cases = {"path_128x112x96": (EXTRACT_BATCH, 112, 96),
+             "odd_tiles_3x30x46": (3, 30, 46), "batch1_112x96": (1, 112, 96)}
+    out, worst = {}, 0.0
+    for name, (b, h, wd) in cases.items():
+        x = torch.rand(b, h, wd, 1, generator=gen).cuda()
+        for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
+            xs = x.to(dtype)
+            got = stem.stem2_conv(xs, w, bias, w2, bias2).float()
+            want = stem.stem2_conv_plain(xs, w, bias, w2, bias2).float()
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            if dtype == torch.float32:
+                worst = max(worst, err)
+            # a comparison of outputs that are all zero would prove nothing
+            mean_abs = float(want.abs().mean())
+            out[f"{name}_{str(dtype).split('.')[1]}"] = {
+                "max_abs_err": err, "tolerance": tol, "mean_abs": mean_abs,
+                "ok": bool(torch.allclose(got, want, rtol=tol, atol=tol))
+                and mean_abs > 1e-2, "shape": list(got.shape)}
+    b, h, wd = cases["path_128x112x96"]
+    x = torch.rand(b, h, wd, 1, generator=gen).cuda()
+    xn = x.permute(0, 3, 1, 2)
+
+    def library():
+        y = F.max_pool2d(mfm.mfm2(_nchw_conv(F, xn, w, bias, 2), 1), 2, 2)
+        return mfm.mfm2(_nchw_conv(F, y, w2, bias2, 0), 1)
+
+    ms = time_ms(torch, lambda: stem.stem2_conv(x, w, bias, w2, bias2), 50)
+    plain_ms = time_ms(torch, lambda: stem.stem2_conv_plain(
+        x, w, bias, w2, bias2), 20)
+    library_ms = time_ms(torch, library, 20)
+    ops = 2 * b * (h * wd * 25 * C1 + (h // 2) * (wd // 2) * (C1 // 2) * C2A)
+    nbytes = (x.numel() + w.numel() + bias.numel() + w2.numel()
+              + bias2.numel() + b * (h // 2) * (wd // 2) * (C2A // 2)) * 4
+    bound_ms, bound_by = bound(nbytes, ops)
+    ctx["kernels"]["stem2"].update(
+        max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+        bound_by=bound_by, library_ms=library_ms)
+    return {"ok": all(v["ok"] for v in out.values()), "cases": out,
+            "library": "cuDNN conv2d x2 + mfm2 + max_pool2d, f32",
+            "path_shape": [b, h, wd, 1], "gflop": ops / 1e9, "ms": ms,
+            "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": bound_ms}
+
+
+# the extraction runs: (model, store kind, image side(s), rows on the card,
+# rows rerun on the CPU, the kernels that must launch once per batch)
+EXTRACT_RUNS = {
+    "lightcnn9_128": ("lightcnn9", "mmap", (128, 128), 4096, 16,
+                      {"front9": 1, "stem2": 0}),
+    "lightcnn9_112x96": ("lightcnn9", "npz", (112, 96), 1024, 16,
+                         {"stem2": 1, "front9": 0}),
+    "lightcnn29_128": ("lightcnn29", "npz", (128, 128), 512, 8,
+                       {"stem": 1, "efm3": 29}),
+}
+
+
+def _extract(ctx, store: str, model: str, device: str, out: str,
+             batch: int, bf16: bool = False):
+    """One ``extract_features`` run over ``store``, the launch counts of
+    the extraction path read around it."""
+    import torch
+
+    from improving_face_recognition_performance_using_triplet_loss_tpu_torch.cli import (
+        extract_features,
+    )
+
+    for c in ctx["counters"].values():
+        c.reset()
+    res = extract_features.main(
+        ["--train-images", store, "--model", model, "--batch-size",
+         str(batch), "--device", device, "--out-dir", out]
+        + (["--bf16"] if bf16 else []))["train"]
+    if device == "cuda":
+        torch.cuda.synchronize()
+    return res, ({k: c.count for k, c in ctx["counters"].items()
+                  if k in PATH_KERNELS["extract"]})
+
+
+def phase_extract(ctx):
+    """``extract_features`` on the card with random seeded weights over
+    synthetic-face stores: LightCNN9 at 128x128 from a uint8 mmap store
+    (B6 once per batch), LightCNN9 on a 112x96 center crop from an .npz
+    store (B4 once per batch), LightCNN29 at 128x128 (B3 once and B2 29
+    times per batch). Each run's first rows are rerun on the CPU by the
+    same CLI (same seed, same weights): features within 1e-4, equal
+    predictions. A LightCNN9 --bf16 run is held to the f32 one by cosine
+    (BF16_COS_MIN). Rows/s are the CLI's extraction seconds: a parity run,
+    not a benchmark (tools/profile_extract_torch.py measures)."""
+    import numpy as np
+
+    from improving_face_recognition_performance_using_triplet_loss_tpu_torch.data import (
+        load_feature_store,
+        save_image_store,
+        save_image_store_mmap,
+        synthetic_faces,
+    )
+
+    faces, labels = synthetic_faces(num_ids=256, per_id=16, size=128, seed=0)
+    runs, checks = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, (model, kind, (h, w), rows, cpu_rows, per_batch) in \
+                EXTRACT_RUNS.items():
+            y0, x0 = (faces.shape[1] - h) // 2, (faces.shape[2] - w) // 2
+            imgs = faces[:rows, y0:y0 + h, x0:x0 + w]
+            store = os.path.join(tmp, name + ("" if kind == "mmap" else ".npz"))
+            (save_image_store_mmap if kind == "mmap" else save_image_store)(
+                store, imgs, labels[:rows])
+            cpu_store = os.path.join(tmp, name + "_cpu.npz")
+            save_image_store(cpu_store, imgs[:cpu_rows], labels[:cpu_rows])
+            out = os.path.join(tmp, name)
+            res, launches = _extract(ctx, store, model, "cuda", out,
+                                     EXTRACT_BATCH)
+            read_launches_from(ctx, launches)
+            cpu, _ = _extract(ctx, cpu_store, model, "cpu", out + "_cpu",
+                              cpu_rows)
+            batches = -(-rows // EXTRACT_BATCH)
+            feat_err = float(np.abs(res.features[:cpu_rows]
+                                    - cpu.features).max())
+            stored, _ = load_feature_store(os.path.join(out, "train.npz"))
+            csv_rows = sum(1 for _ in open(os.path.join(
+                out, "feature_vector_train.csv")))
+            run_checks = {
+                f"{k}_launches": launches[k] == n * batches
+                for k, n in per_batch.items()}
+            run_checks.update({
+                "features_atol_1e-4_vs_cpu": feat_err <= 1e-4,
+                "predictions_equal_cpu": bool(np.array_equal(
+                    res.predictions[:cpu_rows], cpu.predictions)),
+                "finite": bool(np.isfinite(res.features).all()),
+                "shapes": (res.features.shape == (rows, 256 if model
+                                                  == "lightcnn9" else 684)),
+                "files": stored.shape == res.features.shape
+                and csv_rows == rows})
+            checks.update({f"{name}:{k}": v for k, v in run_checks.items()})
+            runs[name] = {"rows": rows, "batches": batches,
+                          "launches": launches,
+                          "features_max_err_vs_cpu": feat_err,
+                          "accuracy": res.accuracy,
+                          "extract_s": res.seconds,
+                          "embeddings_per_s": rows / res.seconds,
+                          "cpu_rows": cpu_rows}
+            if name == "lightcnn9_128":
+                f32 = res.features
+                bf, bf_launches = _extract(ctx, store, model, "cuda",
+                                           out + "_bf16", EXTRACT_BATCH,
+                                           bf16=True)
+                cos = (bf.features.astype(np.float64) * f32).sum(1) / (
+                    np.linalg.norm(bf.features, axis=1)
+                    * np.linalg.norm(f32, axis=1))
+                checks["lightcnn9_128_bf16:front9_launches"] = (
+                    bf_launches["front9"] == batches)
+                checks[f"lightcnn9_128_bf16:cos_min_{BF16_COS_MIN}"] = bool(
+                    cos.min() >= BF16_COS_MIN)
+                runs["lightcnn9_128_bf16"] = {
+                    "rows": rows, "launches": bf_launches,
+                    "cos_vs_f32_min": float(cos.min()),
+                    "cos_vs_f32_mean": float(cos.mean()),
+                    "extract_s": bf.seconds,
+                    "embeddings_per_s": rows / bf.seconds}
+    return {"ok": all(checks.values()), "checks": checks, "runs": runs,
+            "tolerance": "features atol 1e-4 and equal predictions vs the "
+                         f"CPU rerun; bf16 cosine >= {BF16_COS_MIN}"}
+
+
+def read_launches_from(ctx, launches: dict[str, int]) -> None:
+    """Record counts read from a path's run for the kernels line (the first
+    run that launched each kernel)."""
+    for name, n in launches.items():
+        if n and ctx["kernels"][name].get("launches") is None:
+            ctx["kernels"][name]["launches"] = n
+
+
 PHASES = {"build": phase_build, "nms": phase_nms, "stem": phase_stem,
-          "efm3": phase_efm3, "mining": phase_mining, "slice": phase_slice,
-          "head": phase_head}
+          "efm3": phase_efm3, "mining": phase_mining, "front9": phase_front9,
+          "stem2": phase_stem2, "slice": phase_slice, "head": phase_head,
+          "extract": phase_extract, "serve9": phase_serve9}
 
 
-def main() -> int:
+def main(argv: list[str]) -> int:
+    """Run every phase, or only the phases named in ``argv`` (after the
+    build), as ``python3 chip_smoke.py build front9`` does."""
+    unknown = [a for a in argv if a not in PHASES]
+    if unknown:
+        print(f"chip_smoke: unknown phases {unknown}; known: "
+              f"{', '.join(PHASES)}", file=sys.stderr)
+        return 2
     try:
         import torch
     except ImportError:
@@ -596,6 +932,7 @@ def main() -> int:
 
     from improving_face_recognition_performance_using_triplet_loss_tpu_torch.ops.cuda import (
         efm3,
+        front9,
         mining,
         nms,
         stem,
@@ -604,7 +941,9 @@ def main() -> int:
     pkg = os.path.join(PKG, "")
     ctx = {
         "counters": {"nms": nms.launches, "stem": stem.launches,
-                     "efm3": efm3.launches, "mining": mining.launches},
+                     "efm3": efm3.launches, "mining": mining.launches,
+                     "front9": front9.launches,
+                     "stem2": stem.stem2_launches},
         "kernels": {
             "nms": {"name": "nms", "route": "cuda",
                     "source": pkg + "csrc/nms.cu",
@@ -619,10 +958,19 @@ def main() -> int:
                        "source": pkg + "csrc/mining.cu",
                        "replaces": JAX_PKG
                        + "/ops/pallas/triplet_kernel.py:83"},
+            "front9": {"name": "front9", "route": "cuda",
+                       "source": pkg + "csrc/front9.cu",
+                       "replaces": JAX_PKG
+                       + "/ops/pallas/front_kernel.py:209"},
+            "stem2": {"name": "stem2", "route": "cuda",
+                      "source": pkg + "csrc/stem.cu",
+                      "replaces": JAX_PKG + "/ops/pallas/stem_kernel.py:71"},
         },
     }
     failed = []
-    for name, fn in PHASES.items():
+    chosen = {n: f for n, f in PHASES.items()
+              if not argv or n == "build" or n in argv}
+    for name, fn in chosen.items():
         t0 = time.perf_counter()
         try:
             result = fn(ctx)
@@ -655,4 +1003,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

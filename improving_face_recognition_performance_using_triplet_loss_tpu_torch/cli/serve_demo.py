@@ -2,10 +2,11 @@
 
 Port of the JAX package's ``cli/serve_demo.py --streams`` mode: N
 same-shape camera frames go through the fused pipeline together (MTCNN
-cascade -> best face -> crop -> EFMNet342 -> L2 -> gallery argmax), and the
-demo prints each stream's result and the frames/s. Weights are random
-(seeded) unless ``--export-dir`` names a JAX or port export, which runs in
-bf16 as in the JAX demo. The other modes of the JAX demo (single camera,
+cascade -> best face -> crop -> embedding net -> L2 -> gallery argmax), and
+the demo prints each stream's result and the frames/s. The embedding net is
+``--model efmnet342`` (the default), ``lightcnn9`` or ``lightcnn29`` at
+``--image-size``, with random (seeded) weights, unless ``--export-dir``
+names a JAX or port export, which runs in bf16 as in the JAX demo. The other modes of the JAX demo (single camera,
 ``--video``, ``--detect``, ``--native``) are not ported yet.
 
     python -m improving_face_recognition_performance_using_triplet_loss_tpu_torch.cli.serve_demo \\
@@ -65,9 +66,6 @@ def _check_args(args, unknown) -> None:
             "camera, --video, --detect and --native modes are queued in "
             f"{_ROADMAP} ('RecognitionService, the other serve_demo modes')"
             + (f" (unrecognized: {' '.join(unknown)})" if unknown else ""))
-    if args.model != "efmnet342":
-        raise SystemExit(f"--model {args.model} is not ported; LightCNN29 / "
-                         f"LightCNN9 are queued in {_ROADMAP}")
     if args.gallery_dtype == "int8":
         raise SystemExit("int8 galleries are not ported; queued in "
                          f"{_ROADMAP} ('DeviceGallery and int8 galleries')")
@@ -77,7 +75,7 @@ def _check_args(args, unknown) -> None:
 
 
 def _embed_model(args, device):
-    from ..models.efm_symbol import build_efmnet342
+    from ..models import model_by_name
     from ..serve.convert import from_jax_params
 
     if args.export_dir:
@@ -85,8 +83,9 @@ def _embed_model(args, device):
                                device=device)
     print("note: random-init model (pipeline demo; pass --export-dir for a "
           "trained one)")
-    return build_efmnet342(
-        args.num_classes, image_size=args.image_size, device=device,
+    return model_by_name(
+        args.model, args.num_classes,
+        input_hw=(args.image_size, args.image_size), device=device,
         generator=torch.Generator().manual_seed(args.seed))
 
 

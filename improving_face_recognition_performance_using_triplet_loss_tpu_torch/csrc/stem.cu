@@ -28,6 +28,17 @@
 // phase max, and writes only the pooled result. Adjacent threads own
 // adjacent channels, so weight reads hit distinct banks and the stores
 // are contiguous.
+//
+// Kernel B4 (stem2_kernel below): B3 with mfm2, chained with a 1x1 conv +
+// bias + mfm2, LightCNN9's conv1..conv2a. Replaces
+// ops/pallas/stem_kernel.py::stem2_conv_pallas. The stem result (rounded
+// to the input dtype, as the Pallas kernel rounds it) stays in shared
+// memory as an [8x8 pixels, C/2] tile and is multiplied by the [C/2, C2]
+// conv2a weights (18 KB f32 for LightCNN9), also in shared memory; each
+// thread owns one pixel and 4 mfm2 pairs (j, j + C2/2), so the mfm2 runs
+// in registers and only [pixels, C2/2] reaches device memory. At the path
+// shape (B=128, 112x96, C=96, C2=96) it does ~9.8 GFLOP for ~72 MB: f32
+// operations bound it (0.146 ms at 67 TFLOP/s) as they bound B3.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -142,7 +153,150 @@ int launch(const void* x, const void* w, const void* bias, void* out, int B,
   return (int)cudaGetLastError();
 }
 
+// B4's shared memory in floats: w2 [G][C2/2][2] first (16-byte aligned
+// float4 reads), then taps, biases, the window and the stem tile [64][G+1]
+int stem2_smem_floats(int C, int C2) {
+  const int G = C / 2;
+  return G * C2 + 25 * C + C + C2 + IH * IW + TY * TX * (G + 1);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+stem2_kernel(const T* __restrict__ x, const float* __restrict__ w,
+             const float* __restrict__ bias, const float* __restrict__ w2,
+             const float* __restrict__ b2, T* __restrict__ out, int H, int W,
+             int C, int C2) {
+  extern __shared__ __align__(16) float sm2[];
+  const int G = C / 2, half2 = C2 / 2, SS = G + 1;
+  float* w2s = sm2;             // [G][half2][2]
+  float* ws = w2s + G * C2;     // [25, C]
+  float* bs = ws + 25 * C;      // [C]
+  float* b2s = bs + C;          // [C2]
+  float* win = b2s + C2;        // [IH, IW]
+  float* st = win + IH * IW;    // [TY*TX][G + 1] stem tile
+
+  const int b = blockIdx.z;
+  const int py0 = blockIdx.y * TY, px0 = blockIdx.x * TX;
+  const int Ho = H / 2, Wo = W / 2;
+  const int iy0 = 2 * py0 - 2, ix0 = 2 * px0 - 2;
+  const T* xb = x + (size_t)b * H * W;
+  for (int k = threadIdx.x; k < IH * IW; k += THREADS) {
+    const int iy = iy0 + k / IW, ix = ix0 + k % IW;
+    win[k] = (iy >= 0 && iy < H && ix >= 0 && ix < W)
+                 ? to_f(xb[(size_t)iy * W + ix])
+                 : 0.0f;
+  }
+  for (int k = threadIdx.x; k < 25 * C; k += THREADS) ws[k] = w[k];
+  for (int k = threadIdx.x; k < C; k += THREADS) bs[k] = bias[k];
+  for (int k = threadIdx.x; k < G * C2; k += THREADS) w2s[k] = w2[k];
+  for (int k = threadIdx.x; k < C2; k += THREADS) b2s[k] = b2[k];
+  __syncthreads();
+
+  // stage 1: the B3 stem with mfm2, into the tile (rounded to T)
+  for (int item = threadIdx.x; item < TY * TX * G; item += THREADS) {
+    const int g = item % G;
+    const int p = item / G;
+    const int ty = p / TX, tx = p % TX;
+    float v[6][6];
+#pragma unroll
+    for (int r = 0; r < 6; ++r)
+#pragma unroll
+      for (int c = 0; c < 6; ++c) v[r][c] = win[(2 * ty + r) * IW + 2 * tx + c];
+    float mx = -INFINITY;
+#pragma unroll
+    for (int s = 0; s < 2; ++s) {
+      const int ch = s * G + g;
+      float a00 = 0.f, a01 = 0.f, a10 = 0.f, a11 = 0.f;
+#pragma unroll
+      for (int di = 0; di < 5; ++di)
+#pragma unroll
+        for (int dj = 0; dj < 5; ++dj) {
+          const float wv = ws[(di * 5 + dj) * C + ch];
+          a00 += v[di][dj] * wv;
+          a01 += v[di][dj + 1] * wv;
+          a10 += v[di + 1][dj] * wv;
+          a11 += v[di + 1][dj + 1] * wv;
+        }
+      const float bv = bs[ch];
+      mx = fmaxf(mx, fmaxf(fmaxf(a00 + bv, a01 + bv), fmaxf(a10 + bv, a11 + bv)));
+    }
+    st[p * SS + g] = to_f(from_f<T>(mx));
+  }
+  __syncthreads();
+
+  // stage 2: 1x1 conv + bias + mfm2; an item is one pixel x 4 pairs
+  const int NJ = half2 / 4;
+  for (int item = threadIdx.x; item < TY * TX * NJ; item += THREADS) {
+    const int jg = item % NJ;
+    const int p = item / NJ;
+    const int py = py0 + p / TX, px = px0 + p % TX;
+    if (py >= Ho || px >= Wo) continue;
+    float acc[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    for (int k = 0; k < G; ++k) {
+      const float sv = st[p * SS + k];
+      const float4* wp =
+          reinterpret_cast<const float4*>(w2s + (k * half2 + 4 * jg) * 2);
+      const float4 wa = wp[0], wb = wp[1];
+      acc[0] += sv * wa.x;
+      acc[1] += sv * wa.y;
+      acc[2] += sv * wa.z;
+      acc[3] += sv * wa.w;
+      acc[4] += sv * wb.x;
+      acc[5] += sv * wb.y;
+      acc[6] += sv * wb.z;
+      acc[7] += sv * wb.w;
+    }
+    T* o = out + (((size_t)b * Ho + py) * Wo + px) * half2;
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int j = 4 * jg + r;
+      o[j] = from_f<T>(fmaxf(acc[2 * r] + b2s[j], acc[2 * r + 1] + b2s[j + half2]));
+    }
+  }
+}
+
+template <typename T>
+int launch2(const void* x, const void* w, const void* bias, const void* w2,
+            const void* b2, void* out, int B, int H, int W, int C, int C2,
+            void* stream) {
+  const int smem = stem2_smem_floats(C, C2) * (int)sizeof(float);
+  dim3 grid((W / 2 + TX - 1) / TX, (H / 2 + TY - 1) / TY, B);
+  auto kern = &stem2_kernel<T>;
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  kern<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
+      (const T*)x, (const float*)w, (const float*)bias, (const float*)w2,
+      (const float*)b2, (T*)out, H, W, C, C2);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
+
+extern "C" int stem2_smem_bytes(int C, int C2) {
+  return stem2_smem_floats(C, C2) * (int)sizeof(float);
+}
+
+// x [B, H, W] (f32 or bf16, H and W even), w [25, C] f32 and bias [C] f32
+// (the stem, mfm2), w2 [C/2, C2/2, 2] f32 (conv2a pairs j, j + C2/2),
+// b2 [C2] f32, all rounded to x's dtype by the caller; out [B, H/2, W/2,
+// C2/2] in x's dtype. C2/2 must divide by 4.
+extern "C" int stem2_conv_f32(const void* x, const void* w, const void* bias,
+                              const void* w2, const void* b2, void* out,
+                              int B, int H, int W, int C, int C2,
+                              void* stream) {
+  return launch2<float>(x, w, bias, w2, b2, out, B, H, W, C, C2, stream);
+}
+
+extern "C" int stem2_conv_bf16(const void* x, const void* w, const void* bias,
+                               const void* w2, const void* b2, void* out,
+                               int B, int H, int W, int C, int C2,
+                               void* stream) {
+  return launch2<__nv_bfloat16>(x, w, bias, w2, b2, out, B, H, W, C, C2,
+                                stream);
+}
 
 extern "C" int stem_smem_bytes(int C) {
   return (IH * IW + 26 * C) * (int)sizeof(float);

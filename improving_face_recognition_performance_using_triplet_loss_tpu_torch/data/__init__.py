@@ -1,5 +1,6 @@
-"""Data of the head slice: positive-pair batching, the feature store and
-synthetic features (numpy copies of the JAX package's modules)."""
+"""Data of the port: positive-pair batching, the feature store, the image
+store I/O and synthetic features and faces (numpy copies of the JAX
+package's modules)."""
 
 from .feature_store import (  # noqa: F401
     load_feature_store,
@@ -11,4 +12,10 @@ from .feature_store import (  # noqa: F401
     write_labels_csv,
 )
 from .pairs import PairBatcher, build_positive_index  # noqa: F401
-from .synthetic import synthetic_features  # noqa: F401
+from .records import (  # noqa: F401
+    load_image_store,
+    load_image_store_mmap,
+    save_image_store,
+    save_image_store_mmap,
+)
+from .synthetic import synthetic_faces, synthetic_features  # noqa: F401

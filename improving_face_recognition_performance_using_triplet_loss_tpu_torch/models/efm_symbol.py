@@ -13,25 +13,25 @@ map as the flax net does, so flax weights load without a row permutation.
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 import torch.nn as nn
 
-from ..device import resolve_device
 from ..ops.mfm import efm3
-from .lightcnn import (EFMResBlock, FusedStem, _maxpool2, flax_entry,
-                       init_conv_, load_kernel_, same_conv)
+from .lightcnn import (EFMResBlock, FlaxLayers, FusedStem, _maxpool2,
+                       finish_build, same_conv)
 from .mtcnn import conv_nhwc
 
 # (num_r, num, tar_num) of stages 2-5 (efm_symbol.py:85-92 of the reference)
 LADDER = [(99, 198, 1), (198, 387, 2), (387, 261, 3), (261, 261, 4)]
 
 
-class EFMNet342(nn.Module):
+class EFMNet342(FlaxLayers):
     """Symbol-ladder EFM net: ``[B, H, W, 1] -> (logits, feat342)``, both
     float32 whatever the compute dtype."""
 
     feature_dim = 342
+    model_name = "efmnet342"
+    in_channels = 1
 
     def __init__(self, num_classes: int, image_size: int = 64):
         super().__init__()
@@ -40,6 +40,7 @@ class EFMNet342(nn.Module):
                              f"{image_size}")
         self.num_classes = num_classes
         self.image_size = image_size
+        self.input_hw = (image_size, image_size)
         self.conv1 = FusedStem(99, maxout=3)
         self.res = nn.ModuleList()
         self.conv1x1 = nn.ModuleList()
@@ -77,53 +78,14 @@ class EFMNet342(nn.Module):
                        ((f"stage{si}_conv",), c3)]
         return layers + [(("fc1",), self.fc1), (("fc2",), self.fc2)]
 
-    @torch.no_grad()
-    def init_weights(self, generator: torch.Generator) -> "EFMNet342":
-        """flax's init (lecun_normal kernels, zero biases), in layer order."""
-        for _, layer in self._named_layers():
-            init_conv_(layer, generator)
-        return self
-
-    @torch.no_grad()
-    def load_flax_params(self, params: dict) -> "EFMNet342":
-        """Copy a flax ``EFMNet342`` params tree (numpy) in."""
-        for path, layer in self._named_layers():
-            node = params
-            for key in path:
-                node = node[key]
-            load_kernel_(layer, node)
-        return self
-
-    def flax_params(self) -> dict:
-        """This net's weights as a flax params tree of float32 numpy."""
-        tree: dict = {}
-        for path, layer in self._named_layers():
-            node = tree
-            for key in path[:-1]:
-                node = node.setdefault(key, {})
-            node[path[-1]] = flax_entry(layer)
-        return tree
-
 
 def build_efmnet342(num_classes: int, *, image_size: int = 64,
                     params: dict | None = None,
                     generator: torch.Generator | None = None,
                     dtype: torch.dtype = torch.float32,
                     device=None) -> EFMNet342:
-    """A ready EFMNet342 in eval mode on ``device`` (``cuda`` unless
-    given), computing in ``dtype``: flax ``params`` loaded when passed,
-    else random init from ``generator`` on the CPU."""
-    dev = resolve_device(device)
-    net = EFMNet342(num_classes, image_size=image_size)
-    if params is not None:
-        net.load_flax_params(params)
-    else:
-        net.init_weights(generator or torch.Generator().manual_seed(0))
-    return net.to(device=dev, dtype=dtype).eval()
+    """A ready EFMNet342 (see ``lightcnn.finish_build``)."""
+    return finish_build(EFMNet342(num_classes, image_size=image_size),
+                        params=params, generator=generator, dtype=dtype,
+                        device=device)
 
-
-def fc1_side(params: dict) -> int:
-    """Input side (H = W) a flax EFMNet342 tree was built for, read from
-    fc1's fan-in (174 channels at 1/32 of the side)."""
-    fan_in = np.asarray(params["fc1"]["kernel"]).shape[0]
-    return 32 * int(round((fan_in // 174) ** 0.5))

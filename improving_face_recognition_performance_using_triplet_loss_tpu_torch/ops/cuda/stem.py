@@ -1,4 +1,5 @@
-"""Kernel B3 wrapper: the fused stem (``csrc/stem.cu``).
+"""Kernel B3 and B4 wrappers: the fused stem and the stem + conv2a prefix
+(``csrc/stem.cu``).
 
 ``stem_conv_maxout_pool(x, w, bias, maxout=...)`` computes
 conv(5x5 SAME, Cin=1) + bias -> mfm2 (maxout 2) or efm3 (maxout 3) ->
@@ -8,6 +9,13 @@ f32 accumulation. A CUDA tensor launches the kernel; a CPU tensor runs
 ``stem_conv_maxout_pool_plain``, the space-to-depth formulation of the JAX
 package's Pallas kernel (``ops/pallas/stem_kernel.py``): the packed 3x3x4
 conv in f32, f32 bias, maxout, then the max over the four phases.
+
+``stem2_conv(x, w, bias, w2, bias2)`` (kernel B4, LightCNN9's conv1..conv2a)
+chains that stem (mfm2) with a 1x1 conv + bias + mfm2: w2 ``[1, 1, C/2,
+C2]`` or ``[C/2, C2]``, bias2 ``[C2]`` -> ``[B, H/2, W/2, C2/2]``. Its plain
+version ``stem2_conv_plain`` is ``reference_stem`` followed by the 1x1 conv
+and mfm2, computed in f32 from inputs rounded to x's dtype, with the stem
+rounded to x's dtype where the Pallas kernel rounds it.
 """
 
 from __future__ import annotations
@@ -18,10 +26,12 @@ import functools
 import torch
 import torch.nn.functional as F
 
-from ..s2d_stem import pack_stem_weights, space_to_depth2
+from ..mfm import mfm2
+from ..s2d_stem import pack_stem_weights, reference_stem, space_to_depth2
 from ._build import LaunchCount, check, load, require_cuda_or_cpu
 
 launches = LaunchCount("stem")
+stem2_launches = LaunchCount("stem2")
 
 
 def _check_args(x, w, bias, maxout):
@@ -70,8 +80,17 @@ def _fns():
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
         fns[dtype] = fn
+    for dtype, name in ((torch.float32, "stem2_conv_f32"),
+                        (torch.bfloat16, "stem2_conv_bf16")):
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [
+            ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        fns["stem2", dtype] = fn
     lib.stem_smem_bytes.argtypes = [ctypes.c_int]
     lib.stem_smem_bytes.restype = ctypes.c_int
+    lib.stem2_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.stem2_smem_bytes.restype = ctypes.c_int
     return lib, fns
 
 
@@ -109,3 +128,67 @@ def stem_conv_maxout_pool(x: torch.Tensor, w: torch.Tensor,
     if require_cuda_or_cpu(x, "stem"):
         return _launch(x, w, bias, maxout)
     return stem_conv_maxout_pool_plain(x, w, bias, maxout=maxout)
+
+
+def _check_stem2_args(x, w, bias, w2, bias2):
+    _check_args(x, w, bias, 2)
+    c = w.shape[3]
+    if (w2.shape[-2] != c // 2 or bias2.shape != (w2.shape[-1],)
+            or w2.numel() != w2.shape[-2] * w2.shape[-1]):
+        raise ValueError(f"expected w2 [1, 1, {c // 2}, C2] and bias2 [C2], "
+                         f"got {tuple(w2.shape)} and {tuple(bias2.shape)}")
+    if w2.shape[-1] % 2:
+        raise ValueError(f"C2={w2.shape[-1]} must be even (mfm2)")
+
+
+def stem2_conv_plain(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
+                     w2: torch.Tensor, bias2: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of kernel B4: the stem (mfm2), then the 1x1
+    conv + bias + mfm2."""
+    _check_stem2_args(x, w, bias, w2, bias2)
+    dt = x.dtype
+    stem = reference_stem(x.float(), w.to(dt).float(), bias.float(),
+                          maxout=2).to(dt).float()
+    w2m = w2.reshape(w2.shape[-2], w2.shape[-1]).to(dt).float()
+    return mfm2(stem @ w2m + bias2.float()).to(dt)
+
+
+def _launch_stem2(x, w, bias, w2, bias2):
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"stem2 kernel takes f32 or bf16, got {x.dtype}")
+    lib, fns = _fns()
+    b, h, wd, _ = x.shape
+    c, c2 = w.shape[3], w2.shape[-1]
+    if c2 % 8:
+        raise ValueError(f"stem2 kernel: C2={c2} must divide by 8")
+    if lib.stem2_smem_bytes(c, c2) > 227 * 1024:
+        raise ValueError(f"stem2 kernel: C={c}, C2={c2} exceed its shared "
+                         "memory")
+    xc = x.contiguous()
+    wk = w.to(x.dtype).float().reshape(25, c).contiguous()
+    bk = bias.float().contiguous()
+    # [C/2, C2] -> [C/2, C2/2, 2]: the mfm2 pair (j, j + C2/2) side by side
+    w2k = w2.to(x.dtype).float().reshape(c // 2, 2, c2 // 2).transpose(
+        1, 2).contiguous()
+    b2k = bias2.float().contiguous()
+    out = torch.empty((b, h // 2, wd // 2, c2 // 2), dtype=x.dtype,
+                      device=x.device)
+    if out.numel() == 0:
+        return out
+    rc = fns["stem2", x.dtype](
+        xc.data_ptr(), wk.data_ptr(), bk.data_ptr(), w2k.data_ptr(),
+        b2k.data_ptr(), out.data_ptr(), b, h, wd, c, c2,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    check(rc, "stem2_conv")
+    stem2_launches.count += 1
+    return out
+
+
+def stem2_conv(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
+               w2: torch.Tensor, bias2: torch.Tensor) -> torch.Tensor:
+    """Fused stem + 1x1 conv + mfm2: kernel B4 for a CUDA tensor, the plain
+    version for a CPU tensor."""
+    _check_stem2_args(x, w, bias, w2, bias2)
+    if require_cuda_or_cpu(x, "stem2"):
+        return _launch_stem2(x, w, bias, w2, bias2)
+    return stem2_conv_plain(x, w, bias, w2, bias2)

@@ -39,11 +39,14 @@ def _unflatten(flat: dict[str, np.ndarray]) -> dict:
 
 def export_params(out_dir: str, params: Any, *, model_name: str,
                   feature_dim: int, input_hw: tuple[int, int],
-                  input_channels: int = 1) -> str:
+                  input_channels: int = 1, batch_stats: Any = None) -> str:
     """Write ``weights.npz`` + ``manifest.json`` of a flax-layout params
-    tree (nested dicts of arrays) under ``out_dir``."""
+    tree (nested dicts of arrays) under ``out_dir``, with ``batch_stats``
+    (BatchNorm running statistics, flax layout) under ``batch_stats/``."""
     os.makedirs(out_dir, exist_ok=True)
     flat = _flatten(params, "params/")
+    if batch_stats:
+        flat.update(_flatten(batch_stats, "batch_stats/"))
     np.savez(os.path.join(out_dir, "weights.npz"), **flat)
     manifest = {
         "format_version": 1,

@@ -20,6 +20,7 @@ from improving_face_recognition_performance_using_triplet_loss_tpu_torch import 
 )
 from improving_face_recognition_performance_using_triplet_loss_tpu_torch.cli import (
     eval_cos,
+    extract_features,
     serve_demo,
     train_head,
 )
@@ -72,13 +73,16 @@ def test_port_imports_without_jax_or_triton():
                  "ops.cuda._build", "cli.serve_demo", "serve.pipeline",
                  "serve.convert", "detect.device_cascade", "ops.cuda.mining",
                  "ops.mining", "train.steps", "train.loops",
-                 "train.checkpoint", "cli.train_head", "cli.eval_cos"):
+                 "train.checkpoint", "cli.train_head", "cli.eval_cos",
+                 "ops.cuda.front9", "models.lightcnn", "extract",
+                 "cli.extract_features", "data.records", "data.synthetic"):
         assert f"{PORT}.{name}" in mods, name
     assert int(out[1]) == len(mods) >= 20
 
 
 @pytest.mark.parametrize("entry", ["resolve_device", "detector", "model",
-                                   "serve_demo", "train_head", "eval_cos"])
+                                   "serve_demo", "train_head", "eval_cos",
+                                   "extract_features"])
 def test_default_device_without_cuda_raises(monkeypatch, tmp_path, entry):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     call = {
@@ -90,6 +94,9 @@ def test_default_device_without_cuda_raises(monkeypatch, tmp_path, entry):
             "--synthetic", "--epochs", "1", "--out-dir", str(tmp_path)]),
         "eval_cos": lambda: eval_cos.main([
             "--synthetic", "--out-dir", str(tmp_path)]),
+        "extract_features": lambda: extract_features.main([
+            "--synthetic", "--model", "lightcnn9", "--out-dir",
+            str(tmp_path)]),
     }[entry]
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         call()

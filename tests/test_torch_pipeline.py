@@ -29,6 +29,7 @@ from improving_face_recognition_performance_using_triplet_loss_tpu.detect.device
 )
 from improving_face_recognition_performance_using_triplet_loss_tpu.models import (
     EFMNet342 as JEFMNet342,
+    LightCNN9 as JLightCNN9,
     mtcnn as jmtcnn,
 )
 from improving_face_recognition_performance_using_triplet_loss_tpu.serve.pipeline import (
@@ -229,9 +230,40 @@ def test_serve_demo_streams_runs_on_cpu(capsys):
     assert res["out"]["embedding"].shape == (2, 342)
     text = capsys.readouterr().out
     assert "stream   1:" in text and "frames/s" in text
-    for argv in (["--frames", "4"], ["--streams", "2", "--model", "lightcnn9"],
+    for argv in (["--frames", "4"],
                  ["--streams", "2", "--video", "cam.avi"],
                  ["--streams", "2", "--dynamic-gallery", "--gallery-dtype",
                   "int8"]):
         with pytest.raises(SystemExit, match="ROADMAP"):
             serve_demo.main(argv + ["--device", "cpu"])
+
+
+def test_lightcnn9_multistream_pipeline_matches_jax(nets):
+    """(h) the serving path with LightCNN9 as the embedding net: every
+    stream of the port's batched pipeline equals the JAX single-frame
+    pipeline with the same LightCNN9 weights (256-d embeddings)."""
+    jdet, _, _, tdet, _ = nets
+    model = JLightCNN9(num_classes=4)
+    params = flax_params(model, 32, seed=1)
+    gallery = np.random.default_rng(6).normal(size=(5, 256))
+    jfn = j_pipeline(jdet, model, {"params": params}, gallery, **KW)
+    tmodel = from_jax_params(params, device="cpu")
+    frames = _frames(5, 2)
+    out = make_multistream_pipeline(tdet, tmodel, gallery, device="cpu",
+                                    **KW)(frames)
+    assert out["embedding"].shape == (2, 256)
+    for i in range(2):
+        _assert_same({k: v[i].numpy() for k, v in out.items()},
+                     jfn(jnp.asarray(frames[i])))
+
+
+@pytest.mark.parametrize("model,dim", [("lightcnn9", 256), ("lightcnn29", 684)])
+def test_serve_demo_streams_runs_lightcnn_models(model, dim):
+    """``--model lightcnn9|lightcnn29`` serve with the embedding width of
+    the model."""
+    res = serve_demo.main([
+        "--streams", "2", "--frames", "2", "--frame-size", "48", "48",
+        "--image-size", "32", "--model", model, "--device", "cpu",
+        "--det-thresholds", "0.3", "0.3", "0.3"])
+    emb = res["out"]["embedding"]
+    assert emb.shape == (2, dim) and torch.isfinite(emb).all()

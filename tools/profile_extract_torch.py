@@ -1,0 +1,148 @@
+#!/usr/bin/env python3
+"""Where the time of one LightCNN9 extraction batch goes, on one GPU
+(PyTorch port), with kernel B6 and with the unfused front.
+
+Sets up LightCNN9 extraction as ``chip_smoke.py``'s extract phase runs it:
+batch 128 of 128x128 uint8 synthetic faces (1,024 rows, held in host
+memory as the store hands them over), random weights from seed 0, TF32
+off, through ``extract.extract_features`` (per batch: a pageable copy to
+the card, /255 there, the forward, L2 normalization, top-1, the copy back).
+For each pass, in the order B6, unfused, unfused, B6 (the unfused front is
+the model's layer-by-layer path on the card: kernel B3's stem, then cuDNN's
+conv2a and conv2, mfm2 and the pool, routed there by replacing
+``lightcnn9_front_route`` in this process), it times WINDOWS
+unprofiled windows of at least SECONDS of back-to-back batches, then traces
+TRACED batches with ``torch.profiler``. Prints one JSON line per pass: wall
+ms per batch and embeddings/s of each window, device ms per batch by kernel
+family and the top kernels, the device's idle share (1 - device ms / the
+unprofiled wall ms per batch, both from this process), and last the card's
+name and power limit. ``--bf16`` runs the same passes with the net in
+bfloat16 (cuDNN on the tensor cores; B6 still sums in f32 on the CUDA
+cores).
+
+    python tools/profile_extract_torch.py [--bf16]
+
+Needs CUDA.
+"""
+
+import json
+import os
+import subprocess
+import sys
+import time
+from collections import defaultdict
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+FAMILIES = (("front9", "front9_kernel"), ("stem2", "stem2_kernel"),
+            ("stem", "stem_kernel"), ("memcpy", "memcpy"), ("conv", "conv"),
+            ("conv", "cudnn"), ("conv", "implicit"), ("conv", "winograd"),
+            ("conv", "xmma"),
+            ("gemm", "gemm"), ("gemm", "cutlass"), ("pool", "pool"),
+            ("reduce", "reduce"), ("arg", "argm"))
+WINDOWS, SECONDS, TRACED = 3, 3.0, 8
+ROWS, SIDE = 1024, 128
+ORDER = ("front9", "unfused", "unfused", "front9")
+
+
+def family(name: str) -> str:
+    low = name.lower()
+    for fam, key in FAMILIES:
+        if key in low:
+            return fam
+    return "elementwise/other"
+
+
+def main(argv: list[str]) -> int:
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    if not torch.cuda.is_available():
+        print("profile_extract_torch: needs CUDA", file=sys.stderr)
+        return 2
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from chip_smoke import EXTRACT_BATCH
+    from improving_face_recognition_performance_using_triplet_loss_tpu_torch.data import (
+        synthetic_faces,
+    )
+    from improving_face_recognition_performance_using_triplet_loss_tpu_torch.extract import (
+        extract_features,
+    )
+    from improving_face_recognition_performance_using_triplet_loss_tpu_torch.models import (
+        lightcnn,
+        model_by_name,
+    )
+
+    faces, _ = synthetic_faces(num_ids=64, per_id=ROWS // 64, size=SIDE)
+    images = (faces * 255.0).clip(0, 255).astype("uint8")
+    dtype = torch.bfloat16 if "--bf16" in argv else torch.float32
+    model = model_by_name("lightcnn9", 1000, input_hw=(SIDE, SIDE),
+                          dtype=dtype,
+                          generator=torch.Generator().manual_seed(0))
+    route = lightcnn.lightcnn9_front_route
+    batches_per_call = ROWS // EXTRACT_BATCH
+
+    def window(seconds: float) -> tuple[int, float]:
+        n, t0 = 0, time.perf_counter()
+        while True:
+            extract_features(model, images, batch_size=EXTRACT_BATCH)
+            n += batches_per_call
+            dt = time.perf_counter() - t0
+            if dt >= seconds:
+                return n, dt
+
+    for mode in ORDER:
+        lightcnn.lightcnn9_front_route = route if mode == "front9" else (
+            lambda *a, **k: "plain")
+        window(1.0)                                     # warm-up
+        wins = []
+        for _ in range(WINDOWS):
+            n, dt = window(SECONDS)
+            wins.append(dt / n * 1e3)
+        steady_ms = sum(wins) / len(wins)
+        one = images[:EXTRACT_BATCH * TRACED]
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            extract_features(model, one, batch_size=EXTRACT_BATCH)
+            torch.cuda.synchronize()
+        by_name, launches = defaultdict(float), defaultdict(int)
+        for ev in prof.events():
+            if ev.device_type == torch.autograd.DeviceType.CUDA:
+                by_name[ev.name] += ev.time_range.elapsed_us() / 1e3
+                launches[ev.name] += 1
+        device_ms = sum(by_name.values()) / TRACED
+        fams, fam_launch = defaultdict(float), defaultdict(int)
+        for name, ms in by_name.items():
+            fams[family(name)] += ms / TRACED
+            fam_launch[family(name)] += launches[name]
+        short = defaultdict(float)   # names cut to 80 characters, summed
+        for name, ms in by_name.items():
+            short[name[:80]] += ms / TRACED
+        top = sorted(short.items(), key=lambda kv: -kv[1])[:10]
+        print(json.dumps({
+            "mode": mode, "dtype": str(dtype).split(".")[1],
+            "batch": EXTRACT_BATCH, "side": SIDE,
+            "wall_ms_per_batch_windows": wins,
+            "embeddings_per_s_windows": [EXTRACT_BATCH / w * 1e3
+                                         for w in wins],
+            "device_ms_per_batch": device_ms,
+            "device_idle_share": max(0.0, 1.0 - device_ms / steady_ms),
+            "kernel_launches_per_batch": sum(launches.values()) / TRACED,
+            "by_family_ms": dict(sorted(fams.items(),
+                                        key=lambda kv: -kv[1])),
+            "by_family_launches_per_batch": {
+                k: v / TRACED for k, v in fam_launch.items()},
+            "top_kernels_ms": dict(top),
+        }), flush=True)
+    lightcnn.lightcnn9_front_route = route
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip()
+    print(smi.splitlines()[0] if smi else "nvidia-smi: no output", flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))
