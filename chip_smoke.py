@@ -2,10 +2,10 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
 Builds the port's hand-written kernels from ``csrc/`` (CUDA C++) and
-``ops/cuda/`` (Triton) and holds each against its plain PyTorch version on
-the card at the shapes its path gives it. Then it drives the paths of the
-port, each with the launch counts set to 0 just before it and read just
-after:
+holds each against its plain PyTorch version on the card at the shapes its
+path gives it (B6 in f32 and, on the tensor cores, in bf16). Then it
+drives the paths of the port, each with the launch counts set to 0 just
+before it and read just after:
 
 - serving: ``serve_demo --streams 16`` at 240x320 with EFMNet342 at 64x64
   and random seeded weights (kernels B5, B3, B2), rerun on the CPU with the
@@ -16,7 +16,8 @@ after:
 - extraction: ``extract_features`` at batch 128 over synthetic-face stores,
   LightCNN9 at 128x128 (kernel B6) and on 112x96 crops (kernel B4), and
   LightCNN29 at 128x128 (B3, B2), each checked against a CPU rerun of its
-  first rows, plus a ``--bf16`` LightCNN9 run held to the f32 one;
+  first rows, plus a ``--bf16`` LightCNN9 run (B6 in bf16) held to the
+  f32 one;
 - LightCNN9 serving: ``serve_demo --streams 16 --model lightcnn9
   --image-size 128`` at 240x320 (B5, B6), rerun on the CPU.
 
@@ -43,10 +44,12 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 PKG = "improving_face_recognition_performance_using_triplet_loss_tpu_torch"
 JAX_PKG = "improving_face_recognition_performance_using_triplet_loss_tpu"
 
-# H100 SXM, NVIDIA's data sheet: HBM3 rate and the float32 rate outside the
-# tensor cores (every kernel here computes in float32 on the CUDA cores)
+# H100 SXM, NVIDIA's data sheet: HBM3 rate, the float32 rate outside the
+# tensor cores (every kernel but B6 in bf16 computes there) and the dense
+# bf16 tensor-core rate (B6 in bf16)
 MEM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+BF16_TC_OPS_PER_S = 989e12
 
 STREAMS, FRAME_HW, IMAGE = 16, (240, 320), 64
 # the head slice: batch 16384 (the reference's), a 32768-row mining pool,
@@ -56,7 +59,8 @@ HEAD_IDS, HEAD_PER_ID, HEAD_EPOCHS = 4096, 16, 2
 
 # the kernels each path launches (the counts are read per path)
 PATH_KERNELS = {"slice": ("nms", "stem", "efm3"), "head": ("mining",),
-                "extract": ("front9", "stem2", "stem", "efm3"),
+                "extract": ("front9", "front9_bf16", "stem2", "stem",
+                            "efm3"),
                 "serve9": ("nms", "front9")}
 
 
@@ -92,9 +96,10 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def bound(nbytes: float, ops: float) -> tuple[float, str]:
+def bound(nbytes: float, ops: float,
+          ops_per_s: float = F32_OPS_PER_S) -> tuple[float, str]:
     """Least time for the work in ms, and what sets it."""
-    t_mem, t_ops = nbytes / MEM_BYTES_PER_S, ops / F32_OPS_PER_S
+    t_mem, t_ops = nbytes / MEM_BYTES_PER_S, ops / ops_per_s
     return max(t_mem, t_ops) * 1e3, ("bytes" if t_mem >= t_ops else
                                      "operations")
 
@@ -274,6 +279,20 @@ def phase_stem(ctx):
     return {"ok": all(v["ok"] for v in out.values()), **out}
 
 
+def host_us(fn, calls: int = 1000) -> float:
+    """Host microseconds per call of ``fn`` (``time.perf_counter_ns`` over
+    ``calls`` back-to-back calls, from an idle card: the enqueue cost)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter_ns()
+    for _ in range(calls):
+        fn()
+    t = (time.perf_counter_ns() - t0) / calls / 1e3
+    torch.cuda.synchronize()
+    return t
+
+
 def phase_efm3(ctx):
     import torch
 
@@ -283,36 +302,65 @@ def phase_efm3(ctx):
 
     gen = torch.Generator().manual_seed(3)
     worst, ms, plain_ms, lib_ms, nbytes, ops = 0.0, 0.0, 0.0, 0.0, 0.0, 0.0
-    calls = 0
+    calls, host, lib_host = 0, 0.0, 0.0
     shapes = {}
     for (rows, c), n in EFM3_PATH.items():
         x = torch.randn(rows, c, generator=gen).cuda()
         got = efm3.efm3_rows(x)
         want = efm3.efm3_rows_plain(x)
-        exact = bool(torch.equal(got, want))
-        xb = x.to(torch.bfloat16)
-        exact_bf16 = bool(torch.equal(efm3.efm3_rows(xb),
-                                      efm3.efm3_rows_plain(xb)))
+        exact = {"f32": bool(torch.equal(got, want))}
+        for name, dt in (("bf16", torch.bfloat16), ("f16", torch.float16),
+                         ("f64", torch.float64)):
+            xd = x.to(dt)
+            exact[name] = bool(torch.equal(efm3.efm3_rows(xd),
+                                           efm3.efm3_rows_plain(xd)))
+        # NaN at ~1% of the inputs: the same outputs are NaN, the rest equal
+        xn = torch.where(torch.rand(rows, c, generator=gen).cuda() < 0.01,
+                         float("nan"), x)
+        gn, wn = efm3.efm3_rows(xn), efm3.efm3_rows_plain(xn)
+        nan_out = gn.isnan()
+        exact["nan"] = bool(torch.equal(nan_out, wn.isnan())) and bool(
+            torch.equal(gn[~nan_out], wn[~nan_out]))
         worst = max(worst, float((got - want).abs().max()))
         t = c // 3
         k = time_ms(torch, lambda: efm3.efm3_rows(x), 50)
         p = time_ms(torch, lambda: efm3.efm3_rows_plain(x), 50)
         lib = time_ms(torch, lambda: torch.aminmax(x.view(rows, 3, t), dim=1),
                       50)
+        h = host_us(lambda: efm3.efm3_rows(x))
+        lh = host_us(lambda: torch.aminmax(x.view(rows, 3, t), dim=1))
         ms, plain_ms, lib_ms = ms + n * k, plain_ms + n * p, lib_ms + n * lib
+        host, lib_host = host + n * h, lib_host + n * lh
         nbytes += n * (rows * c + rows * 2 * t) * 4
         ops += n * rows * 2 * t * 2          # two compares per output
         calls += n
         shapes[f"{rows}x{c}"] = {"calls": n, "exact": exact,
-                                 "exact_bf16": exact_bf16, "ms": k}
+                                 "nan_outputs": int(nan_out.sum()), "ms": k,
+                                 "host_us_per_call": h}
+    # where a call's host time goes, at the last shape: the output's
+    # allocation, and the ctypes launch alone into a preallocated output
+    fn, stream = efm3._fns()
+    o, dev = efm3.efm3_rows(x), x.get_device()
+    host_parts = {
+        "shape": [rows, c],
+        "alloc_us": host_us(lambda: x.new_empty(o.shape)),
+        "ctypes_launch_us": host_us(lambda: fn(
+            x.data_ptr(), o.data_ptr(), rows, t, 0, stream(dev))),
+        "wrapper_us": h}
     bound_ms, bound_by = bound(nbytes, ops)
     ctx["kernels"]["efm3"].update(max_abs_err=worst, ms=ms, plain_ms=plain_ms,
                                   bound_ms=bound_ms, bound_by=bound_by,
                                   library_ms=lib_ms)
-    ok = worst == 0.0 and all(v["exact"] and v["exact_bf16"]
+    ok = worst == 0.0 and all(all(v["exact"].values())
                               for v in shapes.values())
-    return {"ok": ok, "tolerance": "exact", "calls_per_forward": calls,
-            "shapes": shapes}
+    return {"ok": ok, "tolerance": "exact (f32, bf16, f16, f64; NaN "
+                                   "positions equal)",
+            "calls_per_forward": calls, "forward_ms": ms,
+            "forward_plain_ms": plain_ms, "forward_aminmax_ms": lib_ms,
+            "forward_bound_ms": bound_ms,
+            "host_us_per_call": host / calls,
+            "aminmax_host_us_per_call": lib_host / calls,
+            "host_parts": host_parts, "shapes": shapes}
 
 
 def _serving_checks(torch, out, cpu, dim: int) -> tuple[dict, dict]:
@@ -641,6 +689,16 @@ def _nchw_conv(F, x, kernel, bias, padding):
     return F.conv2d(x, kernel.permute(3, 2, 0, 1), bias, padding=padding)
 
 
+def bf16_ulps(torch, a, b):
+    """|a - b| in units in the last place of bf16 at the larger of |a| and
+    |b| (8 significant bits: ulp(v) = 2^(e - 8) for v = m 2^e, 0.5 <= m <
+    1)."""
+    a, b = a.double(), b.double()
+    _, e = torch.frexp(torch.maximum(a.abs(), b.abs()))
+    ulp = torch.ldexp(torch.ones_like(a), (e - 8).clamp(min=-133))
+    return (a - b).abs() / ulp
+
+
 def phase_front9(ctx):
     import torch
     import torch.nn.functional as F
@@ -657,58 +715,89 @@ def phase_front9(ctx):
     cases = {"path_128x128x128": (EXTRACT_BATCH, 128),
              "tile_edge_2x68x68": (2, 68), "batch1_128": (1, 128),
              "small_3x12x12": (3, 12)}
-    out, worst = {}, 0.0
+    out, worst, worst_bf16 = {}, 0.0, 0.0
     for name, (b, hw) in cases.items():
         x = torch.rand(b, hw, hw, 1, generator=gen).cuda()
         for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
             xs = x.to(dtype)
-            got = front9.front9_chain(xs, params).float()
-            want = front9.front9_plain(xs, params).float()
+            got = front9.front9_chain(xs, params)
+            want = front9.front9_plain(xs, params)
             torch.cuda.synchronize()
-            err = float((got - want).abs().max())
-            if dtype == torch.float32:
-                worst = max(worst, err)
+            err = float((got.float() - want.float()).abs().max())
             # a comparison of outputs that are all zero would prove nothing
-            mean_abs = float(want.abs().mean())
-            out[f"{name}_{str(dtype).split('.')[1]}"] = {
-                "max_abs_err": err, "tolerance": tol, "mean_abs": mean_abs,
-                "ok": bool(torch.allclose(got, want, rtol=tol, atol=tol))
-                and mean_abs > 1e-2, "shape": list(got.shape)}
+            mean_abs = float(want.float().abs().mean())
+            rec = {"max_abs_err": err, "tolerance": tol, "mean_abs": mean_abs,
+                   "shape": list(got.shape)}
+            ok = bool(torch.allclose(got.float(), want.float(), rtol=tol,
+                                     atol=tol)) and mean_abs > 1e-2
+            if dtype == torch.float32:
+                # the f32 kernel sums in the plain version's order
+                worst = max(worst, err)
+                rec["exact"] = bool(torch.equal(got, want))
+                ok = ok and rec["exact"]
+            else:
+                # the tensor cores sum in another order: report how often
+                # a bf16 rounding tips, and by how far
+                worst_bf16 = max(worst_bf16, err)
+                differ = got != want
+                rec.update(differing=int(differ.sum()),
+                           differing_share=float(differ.float().mean()),
+                           max_ulps=float(bf16_ulps(torch, got, want).max()))
+            rec["ok"] = ok
+            out[f"{name}_{str(dtype).split('.')[1]}"] = rec
     b, hw = cases["path_128x128x128"]
     x = torch.rand(b, hw, hw, 1, generator=gen).cuda()
+    xb = x.to(torch.bfloat16)
     packed = front9.pack_front9_weights(params, torch.float32)
-    xn = x.permute(0, 3, 1, 2)
-    p = {k: (v["kernel"], v["bias"]) for k, v in params.items()}
+    packed_bf = front9.pack_front9_weights(params, torch.bfloat16)
+    p32 = {k: (v["kernel"], v["bias"]) for k, v in params.items()}
+    pbf = {k: (v["kernel"].bfloat16(), v["bias"].bfloat16())
+           for k, v in params.items()}
 
-    def library():
+    def composite(xn, p):
         # cuDNN composite of the same layers (TF32 off)
         y = F.max_pool2d(mfm.mfm2(_nchw_conv(F, xn, *p["conv1"], 2), 1), 2, 2)
         y = mfm.mfm2(_nchw_conv(F, y, *p["conv2a"], 0), 1)
         y = mfm.mfm2(_nchw_conv(F, y, *p["conv2"], 1), 1)
         return F.max_pool2d(y, 2, 2)
 
-    lib_err = float((library().permute(0, 2, 3, 1)
+    xn, xbn = x.permute(0, 3, 1, 2), xb.permute(0, 3, 1, 2)
+    lib_err = float((composite(xn, p32).permute(0, 2, 3, 1)
                      - front9.front9_plain(x, params)).abs().max())
     ms = time_ms(torch, lambda: front9.front9_chain(x, params, packed), 20)
     plain_ms = time_ms(torch, lambda: front9.front9_plain(x, params), 10)
-    library_ms = time_ms(torch, library, 10)
+    library_ms = time_ms(torch, lambda: composite(xn, p32), 10)
+    ms_bf = time_ms(torch, lambda: front9.front9_chain(xb, params, packed_bf),
+                    50)
+    plain_bf = time_ms(torch, lambda: front9.front9_plain(xb, params), 10)
+    library_bf = time_ms(torch, lambda: composite(xbn, pbf), 20)
     h2 = hw // 2
     ops = 2 * b * (hw * hw * 25 * C1 + h2 * h2 * (C1 // 2) * C2A
                    + h2 * h2 * 9 * (C2A // 2) * C2)
-    wbytes = sum(v.numel() for d in params.values() for v in d.values()) * 4
-    nbytes = x.numel() * 4 + wbytes + b * (hw // 4) ** 2 * (C2 // 2) * 4
-    bound_ms, bound_by = bound(nbytes, ops)
+    n_w = sum(v["kernel"].numel() for v in params.values())
+    n_b = sum(v["bias"].numel() for v in params.values())
+    n_out = b * (hw // 4) ** 2 * (C2 // 2)
+    bound_ms, bound_by = bound((x.numel() + n_w + n_b + n_out) * 4, ops)
+    bound_bf, bound_by_bf = bound(
+        (x.numel() + n_w + n_out) * 2 + n_b * 4, ops, BF16_TC_OPS_PER_S)
     ctx["kernels"]["front9"].update(
         max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
         bound_by=bound_by, library_ms=library_ms)
+    ctx["kernels"]["front9_bf16"].update(
+        max_abs_err=worst_bf16, ms=ms_bf, plain_ms=plain_bf,
+        bound_ms=bound_bf, bound_by=bound_by_bf, library_ms=library_bf)
     return {"ok": all(v["ok"] for v in out.values()) and lib_err < 1e-4,
             "cases": out, "tile": 8,
             "smem_bytes_per_cta": front9.smem_bytes(C1, C2A),
-            "library": "cuDNN conv2d x3 + mfm2 + max_pool2d x2, f32",
+            "smem_bytes_per_cta_bf16": front9.tc_smem_bytes(),
+            "library": "cuDNN conv2d x3 + mfm2 + max_pool2d x2 (TF32 off)",
             "library_vs_plain_max_abs_err": lib_err,
-            "path_shape": [b, hw, hw, 1], "gflop": ops / 1e9, "ms": ms,
-            "plain_ms": plain_ms, "library_ms": library_ms,
-            "bound_ms": bound_ms, "tflops": ops / ms / 1e9}
+            "path_shape": [b, hw, hw, 1], "gflop": ops / 1e9,
+            "f32": {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                    "bound_ms": bound_ms, "tflops": ops / ms / 1e9},
+            "bf16": {"ms": ms_bf, "plain_ms": plain_bf,
+                     "library_ms": library_bf, "bound_ms": bound_bf,
+                     "tflops": ops / ms_bf / 1e9}}
 
 
 def phase_stem2(ctx):
@@ -775,9 +864,9 @@ def phase_stem2(ctx):
 # rows rerun on the CPU, the kernels that must launch once per batch)
 EXTRACT_RUNS = {
     "lightcnn9_128": ("lightcnn9", "mmap", (128, 128), 4096, 16,
-                      {"front9": 1, "stem2": 0}),
+                      {"front9": 1, "front9_bf16": 0, "stem2": 0}),
     "lightcnn9_112x96": ("lightcnn9", "npz", (112, 96), 1024, 16,
-                         {"stem2": 1, "front9": 0}),
+                         {"stem2": 1, "front9": 0, "front9_bf16": 0}),
     "lightcnn29_128": ("lightcnn29", "npz", (128, 128), 512, 8,
                        {"stem": 1, "efm3": 29}),
 }
@@ -876,8 +965,11 @@ def phase_extract(ctx):
                 cos = (bf.features.astype(np.float64) * f32).sum(1) / (
                     np.linalg.norm(bf.features, axis=1)
                     * np.linalg.norm(f32, axis=1))
+                read_launches_from(ctx, bf_launches)
+                checks["lightcnn9_128_bf16:front9_bf16_launches"] = (
+                    bf_launches["front9_bf16"] == batches)
                 checks["lightcnn9_128_bf16:front9_launches"] = (
-                    bf_launches["front9"] == batches)
+                    bf_launches["front9"] == 0)
                 checks[f"lightcnn9_128_bf16:cos_min_{BF16_COS_MIN}"] = bool(
                     cos.min() >= BF16_COS_MIN)
                 runs["lightcnn9_128_bf16"] = {
@@ -943,6 +1035,7 @@ def main(argv: list[str]) -> int:
         "counters": {"nms": nms.launches, "stem": stem.launches,
                      "efm3": efm3.launches, "mining": mining.launches,
                      "front9": front9.launches,
+                     "front9_bf16": front9.tc_launches,
                      "stem2": stem.stem2_launches},
         "kernels": {
             "nms": {"name": "nms", "route": "cuda",
@@ -951,8 +1044,8 @@ def main(argv: list[str]) -> int:
             "stem": {"name": "stem", "route": "cuda",
                      "source": pkg + "csrc/stem.cu",
                      "replaces": JAX_PKG + "/ops/pallas/stem_kernel.py:130"},
-            "efm3": {"name": "efm3", "route": "triton",
-                     "source": pkg + "ops/cuda/efm3.py",
+            "efm3": {"name": "efm3", "route": "cuda",
+                     "source": pkg + "csrc/efm3.cu",
                      "replaces": JAX_PKG + "/ops/pallas/mfm_kernel.py:32"},
             "mining": {"name": "mining", "route": "cuda",
                        "source": pkg + "csrc/mining.cu",
@@ -962,6 +1055,10 @@ def main(argv: list[str]) -> int:
                        "source": pkg + "csrc/front9.cu",
                        "replaces": JAX_PKG
                        + "/ops/pallas/front_kernel.py:209"},
+            "front9_bf16": {"name": "front9_bf16", "route": "cuda",
+                            "source": pkg + "csrc/front9_tc.cu",
+                            "replaces": JAX_PKG
+                            + "/ops/pallas/front_kernel.py:209"},
             "stem2": {"name": "stem2", "route": "cuda",
                       "source": pkg + "csrc/stem.cu",
                       "replaces": JAX_PKG + "/ops/pallas/stem_kernel.py:71"},

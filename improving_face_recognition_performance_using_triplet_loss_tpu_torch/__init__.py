@@ -9,9 +9,8 @@ JAX twin:
 
 - ``ops``     — MFM/EFM activations, distances, negative mining, box ops
                 and NMS, the space-to-depth stem; ``ops/cuda/`` holds the
-                wrappers of the hand-written Hopper kernels whose sources
-                live in ``csrc/`` (CUDA C++) or in the wrapper itself
-                (Triton).
+                wrappers of the hand-written Hopper kernels whose CUDA C++
+                sources live in ``csrc/``.
 - ``models``  — MTCNN PNet/RNet/ONet, the 342-d EFM symbol ladder and the
                 linear triplet head.
 - ``losses``, ``train`` — the triplet loss, the head's train and eval

@@ -33,7 +33,8 @@
 // pairs: per input channel it loads a 4x4 window of conv2a values into
 // registers and does 9 taps x 4 positions x 8 channels = 288 FMAs from 16
 // + 18 shared loads, then mfm2 and the pool in registers. No tensor cores:
-// the kernel keeps full f32 products (TF32 off), like B1 and B3.
+// the kernel keeps full f32 products (TF32 off), like B1 and B3. This file
+// serves f32; the bf16 version runs on the tensor cores (front9_tc.cu).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -291,8 +292,8 @@ extern "C" int front9_smem_bytes(int C1, int C2a) {
 extern "C" int front9_tile() { return T; }
 extern "C" int front9_pairs_per_chunk() { return PAIRS; }
 
-// x [B, H, W] (f32 or bf16, H and W multiples of 4); weights f32, already
-// rounded to x's dtype by the caller: w1 [25, C1], b1 [C1], w2a [C1/2,
+// x [B, H, W] f32 (H and W multiples of 4; bf16 runs on the tensor cores,
+// front9_tc.cu); weights f32: w1 [25, C1], b1 [C1], w2a [C1/2,
 // C2a/2, 2] (pairs j, j + C2a/2), b2a [C2a], w2 [C2/32, 9 * C2a/2, 16, 2]
 // (chunks of 16 pairs j, j + C2/2), b2 [C2]; out [B, H/4, W/4, C2/2] in
 // x's dtype. C1/2 and C2a/2 must divide by 4, C2/2 by 16.
@@ -302,12 +303,4 @@ extern "C" int front9_f32(const void* x, const void* w1, const void* b1,
                           int C1, int C2a, int C2, void* stream) {
   return launch<float>(x, w1, b1, w2a, b2a, w2, b2, out, B, H, W, C1, C2a,
                        C2, stream);
-}
-
-extern "C" int front9_bf16(const void* x, const void* w1, const void* b1,
-                           const void* w2a, const void* b2a, const void* w2,
-                           const void* b2, void* out, int B, int H, int W,
-                           int C1, int C2a, int C2, void* stream) {
-  return launch<__nv_bfloat16>(x, w1, b1, w2a, b2a, w2, b2, out, B, H, W, C1,
-                               C2a, C2, stream);
 }

@@ -26,7 +26,8 @@ _COMMON = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
            "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 # --fmad=false on NMS: an FMA-contracted `area_i + area_j - inter` moves
 # IoUs that sit on the threshold across it, and the keep mask must be exact
-FLAGS = {"nms": ["--fmad=false"], "stem": [], "mining": [], "front9": []}
+FLAGS = {"nms": ["--fmad=false"], "stem": [], "mining": [], "front9": [],
+         "front9_tc": [], "efm3": []}
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}

@@ -7,9 +7,9 @@ defaults to the last one, the JAX layout (NHWC / ``[..., C]``):
 - ``efm3``: split channels into 3 slices, concat(max3, min3). C -> 2C/3.
   The max is max(max(s0, s1), s2) and the min min(min(s0, s1), s2).
 
-``efm3`` on a CUDA tensor launches kernel B2 (``ops/cuda/efm3.py``, Triton)
-on the ``[rows, C]`` view of the channel-last tensor; on a CPU tensor it is
-the plain version below.
+``efm3`` runs on the ``[rows, C]`` view of the channel-last tensor: kernel
+B2 (``ops/cuda/efm3.py``, CUDA C++) on a CUDA tensor, its plain version on
+a CPU tensor; ``efm3_plain`` is the same function on any axis, in PyTorch.
 """
 
 from __future__ import annotations
@@ -42,12 +42,13 @@ def efm3_plain(x: torch.Tensor, axis: int = -1) -> torch.Tensor:
 def efm3(x: torch.Tensor, axis: int = -1) -> torch.Tensor:
     """3-way extended-feature-map: C -> 2C/3 along ``axis``.
 
-    CUDA tensors go through kernel B2 on the ``[rows, C]`` view; the
-    channel axis is moved last first (free when it already is, as for the
-    models' channel-last activations)."""
-    if x.device.type == "cpu":
-        return efm3_plain(x, axis)
+    Kernel B2 for a CUDA tensor, its plain version for a CPU one, on the
+    ``[rows, C]`` view: directly for a contiguous tensor whose channel axis
+    is last (the models' activations), else after moving that axis last."""
     c = x.shape[axis]
+    if axis in (-1, x.ndim - 1) and x.is_contiguous():
+        out = efm3_rows(x.reshape(-1, c))
+        return out.reshape(*x.shape[:-1], out.shape[1])
     xl = torch.movedim(x, axis, -1).contiguous()
     out = efm3_rows(xl.reshape(-1, c))
     return torch.movedim(out.reshape(*xl.shape[:-1], out.shape[-1]), -1, axis)

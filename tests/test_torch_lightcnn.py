@@ -128,10 +128,14 @@ def test_pack_front9_weights_layout():
     np.testing.assert_array_equal(w2a[:, :, 1], k2a[:, 12:])
     np.testing.assert_array_equal(packed["w1"],
                                   params["conv1"]["kernel"].reshape(25, 8))
-    bf = tfront9.pack_front9_weights(params, torch.bfloat16)["w1"]
-    assert bf.dtype == torch.float32
+    # bf16 goes to the tensor-core kernel: its layout, taps rounded to bf16
+    # (tests/test_torch_front9_tc.py unpacks all of it)
+    bf = tfront9.pack_front9_weights(params, torch.bfloat16)
+    assert bf["w1"].dtype == torch.bfloat16 and tuple(bf["w1"].shape) == (
+        2, 1, 32, 8)
     np.testing.assert_array_equal(
-        bf, params["conv1"]["kernel"].to(torch.bfloat16).float().reshape(25, 8))
+        bf["w1"][0, 0, 0, 0].float(),
+        params["conv1"]["kernel"][0, 0, 0, 0].to(torch.bfloat16).float())
     with pytest.raises(ValueError, match="divisible"):
         tfront9.pack_front9_weights(_tree(T, _front9_params(c2=40)),
                                     torch.float32)

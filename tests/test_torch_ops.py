@@ -57,7 +57,8 @@ def _np(x):
 # ---------------------------------------------------------------- MFM / EFM
 
 
-@pytest.mark.parametrize("shape", [(7, 66), (5, 513), (2, 3, 4, 99)])
+@pytest.mark.parametrize("shape", [(7, 66), (5, 513), (2, 3, 4, 99),
+                                   (6, 99), (4, 261), (3, 387)])
 def test_efm3_and_mfm2_exact(shape):
     x = np.random.default_rng(sum(shape)).normal(size=shape).astype(np.float32)
     np.testing.assert_array_equal(_np(tmfm.efm3(T(x))),
@@ -70,6 +71,53 @@ def test_efm3_and_mfm2_exact(shape):
     np.testing.assert_array_equal(_np(tefm3.efm3_rows(T(rows))), want)
     with pytest.raises(ValueError):
         tefm3.efm3_rows(T(rows[:, :-1]))
+
+
+# the odd thirds of the serving path (EFMNet342 and LightCNN29 widths)
+@pytest.mark.parametrize("c", [66, 99, 261, 387])
+@pytest.mark.parametrize("dtype", ["bf16", "f16", "f64"])
+def test_efm3_rows_dtypes_exact(c, dtype):
+    """efm3_rows in bf16, f16 and f64 equals efm3_pallas (interpret) on the
+    same values; f64 rows hold f32 values (JAX without x64 computes them in
+    f32, exactly)."""
+    x = np.random.default_rng(c).normal(size=(9, c)).astype(np.float32)
+    jd, td = {"bf16": (jnp.bfloat16, torch.bfloat16),
+              "f16": (jnp.float16, torch.float16),
+              "f64": (jnp.float32, torch.float64)}[dtype]
+    want = np.asarray(efm3_pallas(jnp.asarray(x, jd), interpret=True),
+                      np.float64)
+    got = tefm3.efm3_rows(T(x).to(td))
+    assert got.dtype == td and got.shape == (9, 2 * c // 3)
+    np.testing.assert_array_equal(got.double().numpy(), want)
+
+
+def test_efm3_rows_nan_and_refusals():
+    """NaN propagates as torch.maximum / torch.minimum propagate it; the
+    wrapper refuses C % 3, a tensor that is not 2-D and a non-float one."""
+    x = np.random.default_rng(5).normal(size=(4, 66)).astype(np.float32)
+    x[0, 3] = x[1, 22 + 5] = x[2, 44 + 21] = np.nan
+    got = tefm3.efm3_rows(T(x)).numpy()
+    want = np.asarray(efm3_pallas(jnp.asarray(x), interpret=True))
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    assert np.isnan(got).sum() == 6
+    np.testing.assert_array_equal(got[~np.isnan(got)], want[~np.isnan(want)])
+    for bad in (T(x[:, :-1]), T(x[None]), T(x).long()):
+        with pytest.raises(ValueError):
+            tefm3.efm3_rows(bad)
+
+
+def test_efm3_fast_path_matches_movedim_path():
+    """mfm.efm3 on a contiguous channel-last tensor (the [rows, C] view
+    directly) equals its movedim path (channel axis 1, or a non-contiguous
+    channel-last view) and efm3_plain."""
+    x = T(np.random.default_rng(6).normal(size=(2, 5, 6, 99)).astype(
+        np.float32))
+    fast = tmfm.efm3(x)
+    nchw = tmfm.efm3(x.permute(0, 3, 1, 2), axis=1).permute(0, 2, 3, 1)
+    strided = tmfm.efm3(x.transpose(1, 2)).transpose(1, 2)
+    assert not x.transpose(1, 2).is_contiguous()
+    for other in (nchw, strided, tmfm.efm3_plain(x)):
+        np.testing.assert_array_equal(fast.numpy(), other.numpy())
 
 
 # ------------------------------------------------------------------- NMS

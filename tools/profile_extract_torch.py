@@ -17,8 +17,7 @@ ms per batch and embeddings/s of each window, device ms per batch by kernel
 family and the top kernels, the device's idle share (1 - device ms / the
 unprofiled wall ms per batch, both from this process), and last the card's
 name and power limit. ``--bf16`` runs the same passes with the net in
-bfloat16 (cuDNN on the tensor cores; B6 still sums in f32 on the CUDA
-cores).
+bfloat16 (cuDNN and B6's bf16 kernel on the tensor cores, f32 sums).
 
     python tools/profile_extract_torch.py [--bf16]
 
@@ -35,7 +34,8 @@ from collections import defaultdict
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
-FAMILIES = (("front9", "front9_kernel"), ("stem2", "stem2_kernel"),
+FAMILIES = (("front9", "front9_kernel"), ("front9_bf16", "front9_tc_kernel"),
+            ("stem2", "stem2_kernel"),
             ("stem", "stem_kernel"), ("memcpy", "memcpy"), ("conv", "conv"),
             ("conv", "cudnn"), ("conv", "implicit"), ("conv", "winograd"),
             ("conv", "xmma"),
