@@ -45,11 +45,12 @@ PKG = "improving_face_recognition_performance_using_triplet_loss_tpu_torch"
 JAX_PKG = "improving_face_recognition_performance_using_triplet_loss_tpu"
 
 # H100 SXM, NVIDIA's data sheet: HBM3 rate, the float32 rate outside the
-# tensor cores (every kernel but B6 in bf16 computes there) and the dense
-# bf16 tensor-core rate (B6 in bf16)
+# tensor cores (B2-B5, f32 B6, B1's epilogue), the dense bf16 tensor-core
+# rate (B6 in bf16) and the dense TF32 rate (B1's three TF32 products)
 MEM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 BF16_TC_OPS_PER_S = 989e12
+TF32_TC_OPS_PER_S = 495e12
 
 STREAMS, FRAME_HW, IMAGE = 16, (240, 320), 64
 # the head slice: batch 16384 (the reference's), a 32768-row mining pool,
@@ -276,7 +277,26 @@ def phase_stem(ctx):
     ctx["kernels"]["stem"].update(
         max_abs_err=out["float32"]["max_abs_err"], ms=ms, plain_ms=plain_ms,
         bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
-    return {"ok": all(v["ok"] for v in out.values()), **out}
+    # bf16 at the same shape: the kernel (bf16 in and out, f32 sums on the
+    # CUDA cores) against the same composite in bf16
+    xb, wb, bb = x.bfloat16(), w.bfloat16(), bias.bfloat16()
+    xbn, wbn = xb.permute(0, 3, 1, 2), wb.permute(3, 2, 0, 1).contiguous()
+
+    def library_bf16():
+        y = F.conv2d(xbn, wbn, bb, padding=2)
+        return F.max_pool2d(mfm.efm3_plain(y, axis=1), 2, 2)
+
+    bf16 = {"ms": time_ms(torch, lambda: stem.stem_conv_maxout_pool(
+                xb, w, bias, maxout=3), 50),
+            "plain_ms": time_ms(torch, lambda: stem.stem_conv_maxout_pool_plain(
+                xb, w, bias, maxout=3), 50),
+            "library_ms": time_ms(torch, library_bf16, 50),
+            "bound_ms": bound((x.numel() + n_out) * 2
+                              + (w.numel() + bias.numel()) * 4, ops)[0]}
+    return {"ok": all(v["ok"] for v in out.values()), **out,
+            "path_shape": [b, IMAGE, IMAGE, 1], "ms": ms,
+            "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": bound_ms, "bf16_timing": bf16}
 
 
 def host_us(fn, calls: int = 1000) -> float:
@@ -523,18 +543,32 @@ def phase_mining(ctx):
                                    pos_sq=1e6),
              "one_label": _int_rows(torch, rng, 100, 300, 16, 1,
                                     one_label=True),
+             # B, N off the 128-row tiles and D = 100 off the 32-float
+             # chunks: the zero pad and TMA's out-of-range rows
+             "ragged_1000x3001x100": _int_rows(torch, rng, 1000, 3001, 100,
+                                               50),
+             # one anchor tile: the pool split over the SMs, then merged
+             "small_b_100x20000x128": _int_rows(torch, rng, 100, 20000,
+                                                EMB_DIM, 50),
+             # D > 128: the anchor chunks stream through the ring as well
+             "wide_d_300x2000x160": _int_rows(torch, rng, 300, 2000, 160,
+                                              30),
              "path_shape_int": _int_rows(torch, rng, b, n, EMB_DIM, HEAD_IDS)}
+    lib = mining._lib()
     cases = {}
     for name, x in exact.items():
         got, want = mining.semi_hard_mining(*x), mining.semi_hard_mining_plain(*x)
         torch.cuda.synchronize()
-        cases[name] = {"shape": [x[0].shape[0], x[3].shape[0], x[0].shape[1]],
+        cb, cn = x[0].shape[0], x[3].shape[0]
+        cases[name] = {"shape": [cb, cn, x[0].shape[1]],
+                       "splits": lib.mining_splits(cb, cn),
                        "mismatches": int((got != want).sum())}
     exact_ok = all(c["mismatches"] == 0 for c in cases.values())
 
-    # the path shape on real head outputs: summation orders differ from
-    # cuBLAS's, so a near-tie may go the other way; hold each pick to the
-    # plain pick's distance (recomputed in float64) and side of pos_sq
+    # the path shape on real head outputs: 3xTF32 products and summation
+    # orders differ from cuBLAS's, so a near-tie may go the other way; hold
+    # each pick to the plain pick's distance (recomputed in float64) and
+    # side of pos_sq
     anc, pos_sq, al, pool, pl = x = head_path_inputs(torch)
     got = mining.semi_hard_mining(*x).long()
     want = mining.semi_hard_mining_plain(*x).long()
@@ -547,17 +581,32 @@ def phase_mining(ctx):
         near[i] = bool(((sq - pos_sq[i]).abs() < 1e-5)[pl != al[i]].any())
     gap = (d_got - d_want).abs()
     checks = {"exact_cases_equal": exact_ok,
+              "small_b_takes_the_split_merge": cases[
+                  "small_b_100x20000x128"]["splits"] > 1,
               "picks_are_negatives": bool((pl[got] != al).all()),
               "distance_within_1e-5": bool(((gap <= 1e-5) | near).all()),
               "same_side_of_pos_sq": bool((~side_differs | near).all())}
     ms = time_ms(torch, lambda: mining.semi_hard_mining(*x), 20)
     plain_ms = time_ms(torch, lambda: mining.semi_hard_mining_plain(*x), 5,
                        warmup=2)
+    # yardsticks, neither of them B1's function: cuBLAS's f32 GEMM of the
+    # product alone, and the same GEMM in TF32 (one pass, TF32 on for that
+    # timing only)
     gemm_ms = time_ms(torch, lambda: anc @ pool.T, 20)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        tf32_gemm_ms = time_ms(torch, lambda: anc @ pool.T, 20)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
     d = anc.shape[1]
     nbytes = (b * d + n * d) * 4 + b * 4 + (b + n) * 4 + b * 4
-    ops = 2 * b * n * d + 8 * b * n + 2 * (b + n) * d
-    bound_ms, bound_by = bound(nbytes, ops)
+    # three TF32 products on the tensor cores; the epilogue (~8 operations
+    # a distance) and the norms on the CUDA cores
+    f32_ops = 8 * b * n + 2 * (b + n) * d
+    bound_ms, bound_by = bound(nbytes, 3 * 2 * b * n * d, TF32_TC_OPS_PER_S)
+    bound_ms = max(bound_ms, f32_ops / F32_OPS_PER_S * 1e3)
+    # the CUDA-core kernel's bound (every operation at the f32 rate)
+    cuda_core_bound_ms, _ = bound(nbytes, 2 * b * n * d + f32_ops)
     ctx["kernels"]["mining"].update(
         max_abs_err=float(gap.max()), ms=ms, plain_ms=plain_ms,
         bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
@@ -566,10 +615,14 @@ def phase_mining(ctx):
                          "pick distance within 1e-5 (float64) and same side "
                          "of pos_sq unless a candidate is within 1e-5 of it",
             "exact_cases": cases, "path_shape": [b, n, d],
+            "path_splits": lib.mining_splits(b, n),
             "path_index_differences": int((got != want).sum()),
             "path_max_distance_gap": float(gap.max()),
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "cublas_f32_gemm_ms": gemm_ms}
+            "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "f32_cuda_core_bound_ms": cuda_core_bound_ms,
+            "effective_tflops": 2 * b * n * d / ms / 1e9,
+            "tensor_core_share_of_bound": bound_ms / ms,
+            "cublas_f32_gemm_ms": gemm_ms, "cublas_tf32_gemm_ms": tf32_gemm_ms}
 
 
 def _epoch_cos_means(csv: str, rows_per_epoch: int):
@@ -847,17 +900,34 @@ def phase_stem2(ctx):
         x, w, bias, w2, bias2), 20)
     library_ms = time_ms(torch, library, 20)
     ops = 2 * b * (h * wd * 25 * C1 + (h // 2) * (wd // 2) * (C1 // 2) * C2A)
-    nbytes = (x.numel() + w.numel() + bias.numel() + w2.numel()
-              + bias2.numel() + b * (h // 2) * (wd // 2) * (C2A // 2)) * 4
+    n_out = b * (h // 2) * (wd // 2) * (C2A // 2)
+    n_w = w.numel() + bias.numel() + w2.numel() + bias2.numel()
+    nbytes = (x.numel() + n_w + n_out) * 4
     bound_ms, bound_by = bound(nbytes, ops)
     ctx["kernels"]["stem2"].update(
         max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
         bound_by=bound_by, library_ms=library_ms)
+    # bf16 at the same shape: the kernel (bf16 in and out, f32 sums on the
+    # CUDA cores) against the same composite in bf16 (cuDNN's tensor cores)
+    xb = x.bfloat16()
+    xbn = xb.permute(0, 3, 1, 2)
+    wb, bb, w2b, b2b = (t.bfloat16() for t in (w, bias, w2, bias2))
+
+    def library_bf16():
+        y = F.max_pool2d(mfm.mfm2(_nchw_conv(F, xbn, wb, bb, 2), 1), 2, 2)
+        return mfm.mfm2(_nchw_conv(F, y, w2b, b2b, 0), 1)
+
+    bf16 = {"ms": time_ms(torch, lambda: stem.stem2_conv(
+                xb, w, bias, w2, bias2), 50),
+            "plain_ms": time_ms(torch, lambda: stem.stem2_conv_plain(
+                xb, w, bias, w2, bias2), 20),
+            "library_ms": time_ms(torch, library_bf16, 20),
+            "bound_ms": bound((x.numel() + n_out) * 2 + n_w * 4, ops)[0]}
     return {"ok": all(v["ok"] for v in out.values()), "cases": out,
             "library": "cuDNN conv2d x2 + mfm2 + max_pool2d, f32",
             "path_shape": [b, h, wd, 1], "gflop": ops / 1e9, "ms": ms,
             "plain_ms": plain_ms, "library_ms": library_ms,
-            "bound_ms": bound_ms}
+            "bound_ms": bound_ms, "bf16_timing": bf16}
 
 
 # the extraction runs: (model, store kind, image side(s), rows on the card,

@@ -5,8 +5,10 @@
 per anchor, the pool index of the closest negative farther than its
 positive (``pos_sq`` is the squared anchor-positive distance), or the
 farthest negative when there is none, or 0 when the pool holds no
-negative. A CUDA tensor launches the kernel, which never writes the
-``[B, N]`` distance matrix; a CPU tensor runs ``semi_hard_mining_plain``,
+negative. A CUDA tensor launches the kernel (a pre-pass that splits the
+rows into TF32 hi / lo halves, the 3xTF32 ``wgmma`` + TMA main kernel and a
+merge of the pool ranges), which never writes the ``[B, N]`` distance
+matrix; a CPU tensor runs ``semi_hard_mining_plain``,
 ``pairwise_sq_l2`` followed by ``mine_semi_hard_negative``. The result is
 an integer index, so there is no gradient and no backward kernel.
 """
@@ -40,8 +42,7 @@ def _lib():
     lib = load("mining")
     lib.mining_splits.argtypes = [ctypes.c_int, ctypes.c_int]
     lib.mining_splits.restype = ctypes.c_int
-    lib.mining_scratch_words.argtypes = [ctypes.c_int, ctypes.c_int,
-                                         ctypes.c_int]
+    lib.mining_scratch_words.argtypes = [ctypes.c_int] * 4
     lib.mining_scratch_words.restype = ctypes.c_longlong
     lib.semi_hard_mining.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -71,7 +72,7 @@ def _launch(anc, pos_sq, anc_labels, pool, pool_labels) -> torch.Tensor:
     with torch.cuda.device(dev):
         lib = _lib()
         splits = lib.mining_splits(b, n)
-        scratch = torch.empty(lib.mining_scratch_words(b, n, splits),
+        scratch = torch.empty(lib.mining_scratch_words(b, n, d, splits),
                               dtype=torch.float32, device=dev)
         rc = lib.semi_hard_mining(
             anc.data_ptr(), pool.data_ptr(), pos_sq.data_ptr(),

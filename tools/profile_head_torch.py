@@ -30,8 +30,9 @@ from collections import defaultdict
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
-FAMILIES = (("mining", "mining_partial"), ("mining", "mining_merge"),
-            ("mining", "row_sq_norms"), ("memcpy", "memcpy"),
+# B1's three kernels: the hi / lo pre-pass, the wgmma main kernel, the merge
+FAMILIES = (("mining", "mining_split"), ("mining", "mining_tc"),
+            ("mining", "mining_merge"), ("memcpy", "memcpy"),
             ("gemm", "gemm"), ("gemm", "sm90_xmma"), ("gemm", "cutlass"),
             ("reduce", "reduce"), ("index", "index"), ("arg", "argm"))
 WINDOWS, SECONDS, TRACED = 2, 3.0, 4
