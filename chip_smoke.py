@@ -27,9 +27,12 @@ before it and read just after:
 Prints one JSON line per phase, a ``{"kernels": [...]}`` line, the card's
 name and power limit, and last ``{"ok": true, "device": {...}}``. Exits
 non-zero, printing no result, without CUDA, outside a checkout of the
-repository, or when any phase fails. TF32 is off throughout (cuDNN's
-default would run the float32 convs in TF32), so the card and the CPU
-compute the same float32 products.
+repository, or when any phase fails. Every phase starts from PyTorch's
+defaults, under which cuDNN runs float32 convolutions in TF32: the CLIs
+turn TF32 off themselves (``device.full_f32``), so the card and the CPU
+compute the same float32 products, and the path phases check that they
+did; a kernel phase that runs cuDNN (a plain version or a yardstick) turns
+it off itself.
 """
 
 import json
@@ -183,6 +186,50 @@ def _greedy_iou_count(boxes, threshold, method) -> int:
     return total
 
 
+def _nms_edge_cases(torch, gen) -> dict:
+    """Cases off the path: sets in the global-scratch mode (2,048 and 4,096
+    rows), -0.0 / +0.0 / 1e-30 score ties, NaN and +-inf scores among
+    finite ones, one-row sets, Min with tied scores."""
+    cases = {"rows_2048": (_soups(torch, gen, 2, 2048), 0.5, "Union"),
+             "rows_4096": (_soups(torch, gen, 1, 4096), 0.5, "Union")}
+    b = _soups(torch, gen, STREAMS, 128, invalid=0.0)
+    pick = torch.randint(0, 4, b.shape[:2], generator=gen).cuda()
+    zero = torch.zeros_like(b[..., 4])
+    b[..., 4] = torch.where(pick == 0, zero, torch.where(
+        pick == 1, -zero, torch.where(pick == 2, zero + 1e-30, b[..., 4])))
+    cases["signed_zero_ties"] = (b, 0.5, "Union")
+    b = _soups(torch, gen, STREAMS, 128, invalid=0.0)
+    u = torch.rand(b.shape[:2], generator=gen).cuda()
+    b[..., 4] = torch.where(u < 0.15, float("nan"), torch.where(
+        u < 0.3, float("inf"), torch.where(u < 0.4, float("-inf"),
+                                           b[..., 4])))
+    cases["nan_inf"] = (b, 0.5, "Union")
+    cases["one_row"] = (_soups(torch, gen, 8, 1, invalid=0.0), 0.5, "Union")
+    cases["min_ties"] = (_soups(torch, gen, STREAMS, 64, ties=True), 0.7,
+                         "Min")
+    return cases
+
+
+def nms_device_ms(torch, fn, reps: int = 20) -> tuple[float, dict]:
+    """Device ms per call of ``fn`` from a profiler trace: all kernels, and
+    by kernel name."""
+    from collections import defaultdict
+
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    by_name = defaultdict(float)
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[ev.name[:60]] += ev.time_range.elapsed_us() / 1e3 / reps
+    return sum(by_name.values()), dict(by_name)
+
+
 def phase_nms(ctx):
     import torch
 
@@ -203,6 +250,8 @@ def phase_nms(ctx):
     invalid = _soups(torch, gen, 1, 128)
     invalid[..., 4] = float("-inf")
     cases["all_invalid"] = (invalid, 0.5, "Union")
+    cases.update(_nms_edge_cases(torch, gen))
+    lib = nms._lib()
     report, worst = {}, 0
     for name, (b, th, m) in cases.items():
         got = nms.nms_mask_batched(b, th, m)
@@ -211,18 +260,27 @@ def phase_nms(ctx):
         diff = int((got != want).sum())
         worst = max(worst, int(diff > 0))
         report[name] = {"shape": list(b.shape[:2]), "kept": int(got.sum()),
-                        "mismatches": diff}
+                        "mismatches": diff,
+                        "global_mode": bool(lib.nms_global_mode(b.shape[1]))}
     chain_keep = tb.nms_mask(cases["chain_1024"][0][0], 0.5).cpu()
     chain_ok = torch.equal(chain_keep.nonzero().flatten(),
                            torch.arange(0, 1024, 2))
     ms = plain_ms = nbytes = ops = 0.0
+    calls = {}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     for name in NMS_PATH:
         b, th, m = cases[name]
-        ms += time_ms(torch, lambda: nms.nms_mask_batched(b, th, m), 20)
+        k = time_ms(torch, lambda: nms.nms_mask_batched(b, th, m), 20)
+        ms += k
         plain_ms += time_ms(torch, lambda: nms.nms_mask_plain(b, th, m), 3,
                             warmup=1)
         nbytes += b.numel() * 4 + b.shape[0] * b.shape[1]
         ops += 14 * _greedy_iou_count(b, th, m)
+        dev, by_name = nms_device_ms(
+            torch, lambda: nms.nms_mask_batched(b, th, m))
+        calls[name] = {"wrapper_ms": k, "device_ms": dev,
+                       "kernels": by_name,
+                       "cluster": nms.cluster_size(*b.shape[:2], sms)}
     bound_ms, bound_by = bound(nbytes, ops)
     ok = worst == 0 and chain_ok
     ctx["kernels"]["nms"].update(max_abs_err=worst, ms=ms, plain_ms=plain_ms,
@@ -230,7 +288,10 @@ def phase_nms(ctx):
                                  library_ms=None)
     return {"ok": ok, "tolerance": "masks exact", "cases": report,
             "chain_keeps_even_rows": chain_ok, "path_ms": ms,
-            "path_plain_ms": plain_ms}
+            "path_device_ms": sum(c["device_ms"] for c in calls.values()),
+            "path_plain_ms": plain_ms, "path_calls": calls,
+            "smem_bytes": {name: lib.nms_smem_bytes(n)
+                           for name, (_, n, _, _) in NMS_PATH.items()}}
 
 
 def phase_stem(ctx):
@@ -243,6 +304,8 @@ def phase_stem(ctx):
     from improving_face_recognition_performance_using_triplet_loss_tpu_torch.ops.cuda import (
         stem,
     )
+
+    full_f32()   # cuDNN runs in the plain version and the yardstick
 
     gen = torch.Generator().manual_seed(2)
     b, c = STREAMS, 99
@@ -427,12 +490,14 @@ def _serve(ctx, path: str, argv, dim: int) -> dict:
         c.reset()
     res = serve_demo.main(argv("cuda"))
     torch.cuda.synchronize()
+    cli_tf32_off = tf32_off()
     launches = read_launches(ctx, path)
     dispatches = res["dispatches"] + 1
     out = {k: v.cpu() for k, v in res["out"].items()}
     cpu = serve_demo.main(argv("cpu"))["out"]
     checks, report = _serving_checks(torch, out, cpu, dim)
     checks["launched"] = all(n > 0 for n in launches.values())
+    checks["cli_turned_tf32_off"] = cli_tf32_off
     return {"checks": checks, "frames_per_s": res["fps"],
             "first_dispatch_s": res["first_s"], "dispatches": dispatches,
             "launches": launches,
@@ -677,6 +742,7 @@ def phase_head(ctx):
             c.reset()
         out, hist, rows, cos = run("semi_hard_fused")
         launches = read_launches(ctx, "head")
+        cli_tf32_off = tf32_off()
         params, _, manifest = load_exported_params(os.path.join(out,
                                                                 "export"))
         _, plain_hist, plain_rows, plain_cos = run("semi_hard")
@@ -698,6 +764,7 @@ def phase_head(ctx):
         "plain_run_same_steps": len(plain_losses) == len(losses),
         "epoch_cos_means_atol_1e-4": cos_gap <= 1e-4,
         "step_loss_rtol_1e-2": max(rel) <= 1e-2,
+        "cli_turned_tf32_off": cli_tf32_off,
     }
     step_s = [s["seconds"] for h in hist for s in h.steps]
     plain_step_s = [s["seconds"] for h in plain_hist for s in h.steps]
@@ -762,6 +829,8 @@ def phase_front9(ctx):
     from improving_face_recognition_performance_using_triplet_loss_tpu_torch.ops.cuda import (
         front9,
     )
+
+    full_f32()   # cuDNN runs in the plain version and the yardstick
 
     gen = torch.Generator().manual_seed(6)
     params = front9_params(torch, gen)
@@ -864,12 +933,18 @@ def phase_stem2(ctx):
         stem,
     )
 
+    full_f32()   # cuDNN runs in the plain version and the yardstick
+
     gen = torch.Generator().manual_seed(7)
     params = front9_params(torch, gen)
     w, bias = params["conv1"]["kernel"], params["conv1"]["bias"]
     w2, bias2 = params["conv2a"]["kernel"], params["conv2a"]["bias"]
+    # the path shape, edge tiles, one image, the smallest even shapes, and
+    # far more tiles than the persistent grid has CTAs
     cases = {"path_128x112x96": (EXTRACT_BATCH, 112, 96),
-             "odd_tiles_3x30x46": (3, 30, 46), "batch1_112x96": (1, 112, 96)}
+             "odd_tiles_3x30x46": (3, 30, 46), "batch1_112x96": (1, 112, 96),
+             "smallest_2x2x2": (2, 2, 2), "small_3x4x6": (3, 4, 6),
+             "many_tiles_256x112x96": (256, 112, 96)}
     out, worst = {}, 0.0
     for name, (b, h, wd) in cases.items():
         x = torch.rand(b, h, wd, 1, generator=gen).cuda()
@@ -885,6 +960,7 @@ def phase_stem2(ctx):
             mean_abs = float(want.abs().mean())
             out[f"{name}_{str(dtype).split('.')[1]}"] = {
                 "max_abs_err": err, "tolerance": tol, "mean_abs": mean_abs,
+                "exact": bool(torch.equal(got, want)),
                 "ok": bool(torch.allclose(got, want, rtol=tol, atol=tol))
                 and mean_abs > 1e-2, "shape": list(got.shape)}
     b, h, wd = cases["path_128x112x96"]
@@ -998,6 +1074,7 @@ def phase_extract(ctx):
             out = os.path.join(tmp, name)
             res, launches = _extract(ctx, store, model, "cuda", out,
                                      EXTRACT_BATCH)
+            cli_tf32_off = tf32_off()
             read_launches_from(ctx, launches)
             cpu, _ = _extract(ctx, cpu_store, model, "cpu", out + "_cpu",
                               cpu_rows)
@@ -1018,7 +1095,8 @@ def phase_extract(ctx):
                 "shapes": (res.features.shape == (rows, 256 if model
                                                   == "lightcnn9" else 684)),
                 "files": stored.shape == res.features.shape
-                and csv_rows == rows})
+                and csv_rows == rows,
+                "cli_turned_tf32_off": cli_tf32_off})
             checks.update({f"{name}:{k}": v for k, v in run_checks.items()})
             runs[name] = {"rows": rows, "batches": batches,
                           "launches": launches,
@@ -1067,6 +1145,29 @@ PHASES = {"build": phase_build, "nms": phase_nms, "stem": phase_stem,
           "extract": phase_extract, "serve9": phase_serve9}
 
 
+def pytorch_defaults(torch) -> None:
+    """PyTorch's own TF32 settings: cuDNN's float32 convolutions in TF32,
+    float32 matrix products in full float32."""
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def tf32_off() -> bool:
+    """Whether the CLI just run turned TF32 off for convs and matmuls."""
+    import torch
+
+    return (not torch.backends.cudnn.allow_tf32
+            and not torch.backends.cuda.matmul.allow_tf32)
+
+
+def full_f32() -> None:
+    from improving_face_recognition_performance_using_triplet_loss_tpu_torch.device import (
+        full_f32 as port_full_f32,
+    )
+
+    port_full_f32()
+
+
 def main(argv: list[str]) -> int:
     """Run every phase, or only the phases named in ``argv`` (after the
     build), as ``python3 chip_smoke.py build front9`` does."""
@@ -1089,8 +1190,6 @@ def main(argv: list[str]) -> int:
               "from a checkout of the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
 
     from improving_face_recognition_performance_using_triplet_loss_tpu_torch.ops.cuda import (
         efm3,
@@ -1138,6 +1237,7 @@ def main(argv: list[str]) -> int:
     chosen = {n: f for n, f in PHASES.items()
               if not argv or n == "build" or n in argv}
     for name, fn in chosen.items():
+        pytorch_defaults(torch)
         t0 = time.perf_counter()
         try:
             result = fn(ctx)

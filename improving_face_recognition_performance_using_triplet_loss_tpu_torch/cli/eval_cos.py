@@ -34,13 +34,14 @@ def main(argv=None):
     """Returns the ``(pos_cos, neg_cos)`` arrays of every row."""
     args = build_parser().parse_args(argv)
     from ..data import PairBatcher
-    from ..device import resolve_device
+    from ..device import full_f32, resolve_device
     from ..eval.cosine import CosineSimilaritySink, separation_score
     from ..models.heads import LinearHead
     from ..train import create_train_state, make_head_eval_step, sgd_wd
     from ._common import log_config, setup_logging
     from .train_head import load_features
 
+    full_f32()
     device = resolve_device(args.device)
     log = setup_logging(os.path.join(args.out_dir, "log"), "eval_cos")
     log_config(log, args)

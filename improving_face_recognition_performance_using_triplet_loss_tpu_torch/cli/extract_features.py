@@ -148,9 +148,10 @@ def main(argv=None):
     """Extract every split; returns ``{split: Extracted}``."""
     args = build_parser().parse_args(argv)
     _check_args(args)
-    from ..device import resolve_device
+    from ..device import full_f32, resolve_device
     from ._common import log_config, setup_logging
 
+    full_f32()
     device = resolve_device(args.device)
     log = setup_logging(os.path.join(args.out_dir, "log"), "extract")
     log_config(log, args)

@@ -172,6 +172,9 @@ def parse_args(argv=None):
 
 
 def main(argv=None):
+    from ..device import full_f32
+
+    full_f32()
     return streams_main(parse_args(argv))
 
 

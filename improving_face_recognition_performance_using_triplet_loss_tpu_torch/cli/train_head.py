@@ -92,7 +92,7 @@ def main(argv=None):
     args = build_parser().parse_args(argv)
     _check_args(args)
     from ..data import PairBatcher, load_feature_store
-    from ..device import resolve_device
+    from ..device import full_f32, resolve_device
     from ..eval.cosine import CosineSimilaritySink
     from ..models.heads import LinearHead
     from ..serve.export import export_params
@@ -103,6 +103,7 @@ def main(argv=None):
     )
     from ._common import log_config, setup_logging
 
+    full_f32()
     device = resolve_device(args.device)
     log = setup_logging(os.path.join(args.out_dir, "log"), "train_head")
     log_config(log, args)

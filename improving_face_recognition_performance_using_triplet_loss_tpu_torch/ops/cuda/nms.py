@@ -3,12 +3,12 @@
 ``nms_mask_batched`` takes ``[S, N, 5]`` box sets (``[x1, y1, x2, y2,
 score]`` rows; invalid rows carry a score of -inf) and returns the
 ``[S, N]`` keep mask in the original row order. A CUDA tensor launches the
-kernel, all S sets in one launch; a CPU tensor runs ``nms_mask_plain``,
-the port of the JAX package's ``ops/boxes.py::nms_mask_jax``.
-
-Both sort outside the kernel the way the JAX package does: descending
-score, ties broken by the highest original row (a stable ascending sort of
-the negated reversed scores, mapped back).
+kernel, all S sets in one launch, which sorts, builds the suppression
+bitmask and sweeps it itself; a CPU tensor runs ``nms_mask_plain``, the
+port of the JAX package's ``ops/boxes.py::nms_mask_jax``, which sorts the
+way the JAX package does: descending score, ties broken by the highest
+original row (a stable ascending sort of the negated reversed scores,
+mapped back).
 """
 
 from __future__ import annotations
@@ -97,13 +97,46 @@ def nms_mask_plain(boxes: torch.Tensor, threshold: float,
 @functools.cache
 def _lib():
     lib = load("nms")
-    lib.nms_smem_bytes.argtypes = [ctypes.c_int]
-    lib.nms_smem_bytes.restype = ctypes.c_int
+    for fn in (lib.nms_smem_bytes, lib.nms_global_mode):
+        fn.argtypes = [ctypes.c_int]
+        fn.restype = ctypes.c_int
+    lib.nms_scratch_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.nms_scratch_bytes.restype = ctypes.c_longlong
     lib.nms_keep_mask.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-        ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+        ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p]
     lib.nms_keep_mask.restype = ctypes.c_int
     return lib
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def cluster_size(sets: int, n: int, sms: int) -> int:
+    """CTAs per set: doubled up to 4 while the call still fits the SMs and
+    each CTA keeps at least 128 rows of the mask to build (the
+    cross-scale call, 16 sets of 1,024 rows, takes 4; the others 1).
+    Clusters of 8 measured slower: not all of them fit the GPCs at once."""
+    c = 1
+    while c < 4 and sets * c * 2 <= sms and n >= 256 * c:
+        c *= 2
+    return c
+
+
+@functools.cache
+def _plan(sets: int, n: int, index: int) -> tuple[int, int]:
+    """(global scratch bytes, CTAs per set) of a call shape; raises where
+    the kernel's shared memory cannot hold n rows."""
+    lib = _lib()
+    smem = lib.nms_smem_bytes(n)
+    if smem > 227 * 1024:
+        raise ValueError(f"nms: {n} boxes per set exceed the kernel's "
+                         f"shared memory ({smem} bytes)")
+    return (lib.nms_scratch_bytes(sets, n),
+            cluster_size(sets, n, _sm_count(index)))
 
 
 def _launch(boxes: torch.Tensor, threshold: float,
@@ -113,17 +146,14 @@ def _launch(boxes: torch.Tensor, threshold: float,
     if sets == 0 or n == 0:
         return keep
     lib = _lib()
-    smem = lib.nms_smem_bytes(n)
-    if smem > 227 * 1024:
-        raise ValueError(f"nms: {n} boxes per set exceed the kernel's "
-                         f"shared memory ({smem} bytes)")
+    scratch_bytes, cluster = _plan(sets, n, boxes.device.index or 0)
     boxes = boxes.float().contiguous()
-    order = _score_order(boxes[..., 4]).contiguous()
-    ordered = torch.gather(boxes, 1, order[..., None].expand(sets, n, 5))
-    ordered = ordered.contiguous()
+    scratch = (torch.empty(scratch_bytes, dtype=torch.uint8,
+                           device=boxes.device) if scratch_bytes else None)
     rc = lib.nms_keep_mask(
-        ordered.data_ptr(), order.data_ptr(), keep.data_ptr(), sets, n,
-        threshold, int(method == "Min"),
+        boxes.data_ptr(), keep.data_ptr(),
+        scratch.data_ptr() if scratch is not None else None, sets, n,
+        threshold, int(method == "Min"), cluster,
         torch.cuda.current_stream(boxes.device).cuda_stream)
     check(rc, "nms_keep_mask")
     launches.count += 1

@@ -1,13 +1,15 @@
 #!/usr/bin/env python3
 """Where the time of one LightCNN9 extraction batch goes, on one GPU
-(PyTorch port), with kernel B6 and with the unfused front.
+(PyTorch port), with the fused front (kernel B6 at 128x128, kernel B4 at
+112x96) and with the unfused front.
 
 Sets up LightCNN9 extraction as ``chip_smoke.py``'s extract phase runs it:
-batch 128 of 128x128 uint8 synthetic faces (1,024 rows, held in host
-memory as the store hands them over), random weights from seed 0, TF32
-off, through ``extract.extract_features`` (per batch: a pageable copy to
-the card, /255 there, the forward, L2 normalization, top-1, the copy back).
-For each pass, in the order B6, unfused, unfused, B6 (the unfused front is
+batch 128 of uint8 synthetic faces (1,024 rows, held in host memory as the
+store hands them over), 128x128 or, with ``--hw 112x96``, their 112x96
+center crops, random weights from seed 0, TF32 off, through
+``extract.extract_features`` (per batch: a pageable copy to the card, /255
+there, the forward, L2 normalization, top-1, the copy back). For each
+pass, in the order fused, unfused, unfused, fused (the unfused front is
 the model's layer-by-layer path on the card: kernel B3's stem, then cuDNN's
 conv2a and conv2, mfm2 and the pool, routed there by replacing
 ``lightcnn9_front_route`` in this process), it times WINDOWS
@@ -19,7 +21,7 @@ unprofiled wall ms per batch, both from this process), and last the card's
 name and power limit. ``--bf16`` runs the same passes with the net in
 bfloat16 (cuDNN and B6's bf16 kernel on the tensor cores, f32 sums).
 
-    python tools/profile_extract_torch.py [--bf16]
+    python tools/profile_extract_torch.py [--bf16] [--hw 112x96]
 
 Needs CUDA.
 """
@@ -43,7 +45,7 @@ FAMILIES = (("front9", "front9_kernel"), ("front9_bf16", "front9_tc_kernel"),
             ("reduce", "reduce"), ("arg", "argm"))
 WINDOWS, SECONDS, TRACED = 3, 3.0, 8
 ROWS, SIDE = 1024, 128
-ORDER = ("front9", "unfused", "unfused", "front9")
+ORDER = ("fused", "unfused", "unfused", "fused")
 
 
 def family(name: str) -> str:
@@ -75,10 +77,15 @@ def main(argv: list[str]) -> int:
         model_by_name,
     )
 
+    h, w = SIDE, SIDE
+    if "--hw" in argv:
+        h, w = (int(v) for v in argv[argv.index("--hw") + 1].split("x"))
     faces, _ = synthetic_faces(num_ids=64, per_id=ROWS // 64, size=SIDE)
-    images = (faces * 255.0).clip(0, 255).astype("uint8")
+    y0, x0 = (SIDE - h) // 2, (SIDE - w) // 2
+    images = (faces[:, y0:y0 + h, x0:x0 + w] * 255.0).clip(0, 255).astype(
+        "uint8")
     dtype = torch.bfloat16 if "--bf16" in argv else torch.float32
-    model = model_by_name("lightcnn9", 1000, input_hw=(SIDE, SIDE),
+    model = model_by_name("lightcnn9", 1000, input_hw=(h, w),
                           dtype=dtype,
                           generator=torch.Generator().manual_seed(0))
     route = lightcnn.lightcnn9_front_route
@@ -94,7 +101,7 @@ def main(argv: list[str]) -> int:
                 return n, dt
 
     for mode in ORDER:
-        lightcnn.lightcnn9_front_route = route if mode == "front9" else (
+        lightcnn.lightcnn9_front_route = route if mode == "fused" else (
             lambda *a, **k: "plain")
         window(1.0)                                     # warm-up
         wins = []
@@ -123,7 +130,7 @@ def main(argv: list[str]) -> int:
         top = sorted(short.items(), key=lambda kv: -kv[1])[:10]
         print(json.dumps({
             "mode": mode, "dtype": str(dtype).split(".")[1],
-            "batch": EXTRACT_BATCH, "side": SIDE,
+            "batch": EXTRACT_BATCH, "hw": [h, w],
             "wall_ms_per_batch_windows": wins,
             "embeddings_per_s_windows": [EXTRACT_BATCH / w * 1e3
                                          for w in wins],

@@ -28,7 +28,7 @@ from collections import defaultdict
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
-FAMILIES = (("nms", "nms_sorted_kernel"), ("stem", "stem_kernel"),
+FAMILIES = (("nms", "nms_"), ("stem", "stem_kernel"),
             ("efm3", "efm3_kernel"), ("conv", "conv"), ("conv", "cudnn"),
             ("conv", "implicit"), ("conv", "winograd"), ("gemm", "gemm"),
             ("gemm", "sm90_xmma"), ("gemm", "cutlass"), ("sort", "sort"),
