@@ -3,7 +3,7 @@
 
 Builds the port's hand-written kernels from ``csrc/`` (CUDA C++) and
 holds each against its plain PyTorch version on the card at the shapes its
-path gives it (B6 in f32 and, on the tensor cores, in bf16). Then it
+path gives it (B3 and B6 in f32 and, on the tensor cores, in bf16). Then it
 drives the paths of the port, each with the launch counts set to 0 just
 before it and read just after:
 
@@ -16,8 +16,8 @@ before it and read just after:
 - extraction: ``extract_features`` at batch 128 over synthetic-face stores,
   LightCNN9 at 128x128 (kernel B6) and on 112x96 crops (kernel B4), and
   LightCNN29 at 128x128 (B3, B2), each checked against a CPU rerun of its
-  first rows, plus a ``--bf16`` LightCNN9 run (B6 in bf16) held to the
-  f32 one;
+  first rows, plus ``--bf16`` runs of LightCNN9 (B6 on the tensor cores)
+  and LightCNN29 (B3 on the tensor cores) held to the f32 ones;
 - LightCNN9 serving: ``serve_demo --streams 16 --model lightcnn9
   --image-size 128`` at 240x320 (B5, B6), rerun on the CPU.
 
@@ -64,7 +64,7 @@ HEAD_IDS, HEAD_PER_ID, HEAD_EPOCHS = 4096, 16, 2
 # the kernels each path launches (the counts are read per path)
 PATH_KERNELS = {"slice": ("nms", "stem", "efm3"), "head": ("mining",),
                 "extract": ("front9", "front9_bf16", "stem2", "stem",
-                            "efm3"),
+                            "stem_bf16", "efm3"),
                 "serve9": ("nms", "front9")}
 
 
@@ -294,7 +294,95 @@ def phase_nms(ctx):
                            for name, (_, n, _, _) in NMS_PATH.items()}}
 
 
+# kernel B3's two path shapes, (B, H, W, C, maxout): a 16-crop serving
+# dispatch (EFMNet342's conv1 at 64x64) and a LightCNN29 extraction batch
+# (group1 at 128x128)
+STEM_PATH = {"serving": (STREAMS, IMAGE, IMAGE, 99, 3),
+             "lightcnn29": (128, 128, 128, 99, 3)}
+# the checked cases: both path shapes and a ragged shape (edge tiles, W/2
+# not a multiple of 4), all three at the compiled width (C=99, efm3);
+# LightCNN9's mfm2 width and widths that no model uses (the instances that
+# read their widths at run time, mfm2 and efm3), the last wide (C=1512:
+# the f32 kernel holds 148 KB of taps in shared memory)
+STEM_CASES = {**STEM_PATH, "ragged": (2, 30, 46, 99, 3),
+              "mfm2_c96": (STREAMS, IMAGE, IMAGE, 96, 2),
+              "other_c63": (2, 30, 46, 63, 3),
+              "other_c48": (3, 12, 20, 48, 2),
+              "wide_c1512": (1, 16, 20, 1512, 3)}
+
+
+def stem_inputs(torch, gen, b, h, w, c):
+    x = torch.rand(b, h, w, 1, generator=gen).cuda()
+    wk = (torch.randn(5, 5, 1, c, generator=gen) / 5.0).cuda()
+    bias = (torch.randn(c, generator=gen) * 0.1).cuda()
+    return x, wk, bias
+
+
+def stem_device_ms(torch, fn, reps: int = 20) -> tuple[float | None, dict]:
+    """Kernel B3's own device ms per launch (``fn`` launches it once) from
+    a profiler trace, as the mean of its events, so a trace that misses
+    some events still reads right (None where the trace holds none: not
+    measured); and every kernel's ms per call."""
+    from collections import defaultdict
+
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    by_name, stem_us = defaultdict(float), []
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[ev.name[:60]] += ev.time_range.elapsed_us() / 1e3 / reps
+            if "stem" in ev.name:
+                stem_us.append(ev.time_range.elapsed_us())
+    ms = sum(stem_us) / len(stem_us) / 1e3 if stem_us else None
+    return ms, dict(by_name)
+
+
+def stem_timing(torch, F, mfm, stem, x, w, bias, maxout, dtype) -> dict:
+    """Kernel B3 at one path shape in one dtype: the wrapper's ms (CUDA
+    events), the kernel's own device ms (profiler), the wrapper's host us
+    a call, the plain version's ms, one cuDNN conv + maxout + pool
+    composite's ms, and the bound."""
+    xs = x.to(dtype)
+    xn = xs.permute(0, 3, 1, 2)
+    wn, bn = w.to(dtype).permute(3, 2, 0, 1).contiguous(), bias.to(dtype)
+    act = mfm.efm3_plain if maxout == 3 else mfm.mfm2
+
+    def library():
+        return F.max_pool2d(act(F.conv2d(xn, wn, bn, padding=2), 1), 2, 2)
+
+    def kernel():
+        return stem.stem_conv_maxout_pool(xs, w, bias, maxout=maxout)
+
+    b, h, wd, _ = x.shape
+    c = w.shape[3]
+    c_out = c // 2 if maxout == 2 else 2 * (c // 3)
+    reps = 50 if b * h * wd < 1 << 20 else 20
+    device_ms, by_name = stem_device_ms(torch, kernel)
+    n_io = x.numel() + b * (h // 2) * (wd // 2) * c_out
+    ops = 2 * 25 * c * b * h * wd + 2 * b * h * wd * c
+    tc = dtype == torch.bfloat16
+    bound_ms, bound_by = bound(n_io * xs.element_size()
+                               + (w.numel() + bias.numel()) * 4, ops,
+                               BF16_TC_OPS_PER_S if tc else F32_OPS_PER_S)
+    return {"ms": time_ms(torch, kernel, reps),
+            "device_ms": device_ms, "device_kernels": by_name,
+            "host_us_per_call": host_us(kernel, 200),
+            "plain_ms": time_ms(torch, lambda: stem.stem_conv_maxout_pool_plain(
+                xs, w, bias, maxout=maxout), reps),
+            "library_ms": time_ms(torch, library, reps),
+            "bound_ms": bound_ms, "bound_by": bound_by, "gflop": ops / 1e9}
+
+
 def phase_stem(ctx):
+    """Kernel B3 against its plain version at every case of STEM_CASES in
+    f32 (1e-4) and bf16 (1e-2), then timed at both path shapes in both
+    dtypes beside a cuDNN composite of the same layers (TF32 off)."""
     import torch
     import torch.nn.functional as F
 
@@ -308,58 +396,46 @@ def phase_stem(ctx):
     full_f32()   # cuDNN runs in the plain version and the yardstick
 
     gen = torch.Generator().manual_seed(2)
-    b, c = STREAMS, 99
-    x = torch.rand(b, IMAGE, IMAGE, 1, generator=gen).cuda()
-    w = (torch.randn(5, 5, 1, c, generator=gen) / 5.0).cuda()
-    bias = (torch.randn(c, generator=gen) * 0.1).cuda()
-    out = {}
-    for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 1e-2)):
-        xs, ws, bs = x.to(dtype), w.to(dtype), bias.to(dtype)
-        got = stem.stem_conv_maxout_pool(xs, ws, bs, maxout=3).float()
-        want = stem.stem_conv_maxout_pool_plain(xs, ws, bs, maxout=3).float()
-        err = float((got - want).abs().max())
-        ok = bool(torch.allclose(got, want, rtol=tol, atol=tol))
-        out[str(dtype).split(".")[1]] = {"max_abs_err": err, "tolerance": tol,
-                                         "ok": ok, "shape": list(got.shape)}
-    xn = x.permute(0, 3, 1, 2)
-    wn = w.permute(3, 2, 0, 1).contiguous()
-
-    def library():
-        y = F.conv2d(xn, wn, bias, padding=2)
-        return F.max_pool2d(mfm.efm3_plain(y, axis=1), 2, 2)
-
-    ms = time_ms(torch, lambda: stem.stem_conv_maxout_pool(x, w, bias,
-                                                           maxout=3), 50)
-    plain_ms = time_ms(torch, lambda: stem.stem_conv_maxout_pool_plain(
-        x, w, bias, maxout=3), 50)
-    library_ms = time_ms(torch, library, 50)
-    n_out = b * (IMAGE // 2) ** 2 * (2 * c // 3)
-    nbytes = (x.numel() + w.numel() + bias.numel() + n_out) * 4
-    ops = 2 * 25 * c * b * IMAGE * IMAGE + 2 * b * IMAGE * IMAGE * c
-    bound_ms, bound_by = bound(nbytes, ops)
-    ctx["kernels"]["stem"].update(
-        max_abs_err=out["float32"]["max_abs_err"], ms=ms, plain_ms=plain_ms,
-        bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
-    # bf16 at the same shape: the kernel (bf16 in and out, f32 sums on the
-    # CUDA cores) against the same composite in bf16
-    xb, wb, bb = x.bfloat16(), w.bfloat16(), bias.bfloat16()
-    xbn, wbn = xb.permute(0, 3, 1, 2), wb.permute(3, 2, 0, 1).contiguous()
-
-    def library_bf16():
-        y = F.conv2d(xbn, wbn, bb, padding=2)
-        return F.max_pool2d(mfm.efm3_plain(y, axis=1), 2, 2)
-
-    bf16 = {"ms": time_ms(torch, lambda: stem.stem_conv_maxout_pool(
-                xb, w, bias, maxout=3), 50),
-            "plain_ms": time_ms(torch, lambda: stem.stem_conv_maxout_pool_plain(
-                xb, w, bias, maxout=3), 50),
-            "library_ms": time_ms(torch, library_bf16, 50),
-            "bound_ms": bound((x.numel() + n_out) * 2
-                              + (w.numel() + bias.numel()) * 4, ops)[0]}
-    return {"ok": all(v["ok"] for v in out.values()), **out,
-            "path_shape": [b, IMAGE, IMAGE, 1], "ms": ms,
-            "plain_ms": plain_ms, "library_ms": library_ms,
-            "bound_ms": bound_ms, "bf16_timing": bf16}
+    cases, worst = {}, {torch.float32: 0.0, torch.bfloat16: 0.0}
+    for name, (b, h, wd, c, maxout) in {
+            **STEM_CASES, "misaligned": STEM_CASES["ragged"]}.items():
+        x, w, bias = stem_inputs(torch, gen, b, h, wd, c)
+        for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 1e-2)):
+            xs = x.to(dtype)
+            if name == "misaligned":
+                # one element into its storage: the wrapper copies it to an
+                # aligned buffer, as the kernels stage pairs of elements
+                flat = torch.empty(xs.numel() + 1, dtype=dtype,
+                                   device=xs.device)
+                xs = flat[1:].view(xs.shape).copy_(xs)
+            got = stem.stem_conv_maxout_pool(xs, w, bias, maxout=maxout)
+            want = stem.stem_conv_maxout_pool_plain(xs, w, bias,
+                                                    maxout=maxout)
+            torch.cuda.synchronize()
+            got, want = got.float(), want.float()
+            err = float((got - want).abs().max())
+            worst[dtype] = max(worst[dtype], err)
+            # a comparison of outputs that are all zero would prove nothing
+            mean_abs = float(want.abs().mean())
+            cases[f"{name}_{str(dtype).split('.')[1]}"] = {
+                "shape": list(got.shape), "max_abs_err": err,
+                "tolerance": tol, "mean_abs": mean_abs,
+                "ok": bool(torch.allclose(got, want, rtol=tol, atol=tol))
+                and mean_abs > 1e-2}
+    timing = {}
+    for name, (b, h, wd, c, maxout) in STEM_PATH.items():
+        x, w, bias = stem_inputs(torch, gen, b, h, wd, c)
+        for dtype in (torch.float32, torch.bfloat16):
+            timing[f"{name}_{str(dtype).split('.')[1]}"] = stem_timing(
+                torch, F, mfm, stem, x, w, bias, maxout, dtype)
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    for kern, dtype in (("stem", "float32"), ("stem_bf16", "bfloat16")):
+        t = timing[f"lightcnn29_{dtype}"]
+        ctx["kernels"][kern].update(max_abs_err=worst[getattr(torch, dtype)],
+                                    **{k: t[k] for k in keys})
+    return {"ok": all(v["ok"] for v in cases.values()), "cases": cases,
+            "library": "cuDNN conv2d + efm3 / mfm2 + max_pool2d (TF32 off)",
+            "timing": timing}
 
 
 def host_us(fn, calls: int = 1000) -> float:
@@ -1014,7 +1090,13 @@ EXTRACT_RUNS = {
     "lightcnn9_112x96": ("lightcnn9", "npz", (112, 96), 1024, 16,
                          {"stem2": 1, "front9": 0, "front9_bf16": 0}),
     "lightcnn29_128": ("lightcnn29", "npz", (128, 128), 512, 8,
-                       {"stem": 1, "efm3": 29}),
+                       {"stem": 1, "stem_bf16": 0, "efm3": 29}),
+}
+# the --bf16 reruns of some of those stores, held to the f32 features by
+# cosine: the kernels that must launch once per batch (or never)
+EXTRACT_BF16_RUNS = {
+    "lightcnn9_128": {"front9_bf16": 1, "front9": 0},
+    "lightcnn29_128": {"stem_bf16": 1, "stem": 0, "efm3": 29},
 }
 
 
@@ -1047,9 +1129,11 @@ def phase_extract(ctx):
     store (B4 once per batch), LightCNN29 at 128x128 (B3 once and B2 29
     times per batch). Each run's first rows are rerun on the CPU by the
     same CLI (same seed, same weights): features within 1e-4, equal
-    predictions. A LightCNN9 --bf16 run is held to the f32 one by cosine
-    (BF16_COS_MIN). Rows/s are the CLI's extraction seconds: a parity run,
-    not a benchmark (tools/profile_extract_torch.py measures)."""
+    predictions. --bf16 runs of LightCNN9 at 128x128 (B6 on the tensor
+    cores) and LightCNN29 (B3 on the tensor cores, B2 in bf16) are held to
+    the f32 ones by cosine (BF16_COS_MIN). Rows/s are the CLI's extraction
+    seconds: a parity run, not a benchmark (tools/profile_extract_torch.py
+    measures)."""
     import numpy as np
 
     from improving_face_recognition_performance_using_triplet_loss_tpu_torch.data import (
@@ -1105,7 +1189,7 @@ def phase_extract(ctx):
                           "extract_s": res.seconds,
                           "embeddings_per_s": rows / res.seconds,
                           "cpu_rows": cpu_rows}
-            if name == "lightcnn9_128":
+            if name in EXTRACT_BF16_RUNS:
                 f32 = res.features
                 bf, bf_launches = _extract(ctx, store, model, "cuda",
                                            out + "_bf16", EXTRACT_BATCH,
@@ -1114,13 +1198,12 @@ def phase_extract(ctx):
                     np.linalg.norm(bf.features, axis=1)
                     * np.linalg.norm(f32, axis=1))
                 read_launches_from(ctx, bf_launches)
-                checks["lightcnn9_128_bf16:front9_bf16_launches"] = (
-                    bf_launches["front9_bf16"] == batches)
-                checks["lightcnn9_128_bf16:front9_launches"] = (
-                    bf_launches["front9"] == 0)
-                checks[f"lightcnn9_128_bf16:cos_min_{BF16_COS_MIN}"] = bool(
+                for k, n in EXTRACT_BF16_RUNS[name].items():
+                    checks[f"{name}_bf16:{k}_launches"] = (
+                        bf_launches[k] == n * batches)
+                checks[f"{name}_bf16:cos_min_{BF16_COS_MIN}"] = bool(
                     cos.min() >= BF16_COS_MIN)
-                runs["lightcnn9_128_bf16"] = {
+                runs[f"{name}_bf16"] = {
                     "rows": rows, "launches": bf_launches,
                     "cos_vs_f32_min": float(cos.min()),
                     "cos_vs_f32_mean": float(cos.mean()),
@@ -1205,7 +1288,8 @@ def main(argv: list[str]) -> int:
                      "efm3": efm3.launches, "mining": mining.launches,
                      "front9": front9.launches,
                      "front9_bf16": front9.tc_launches,
-                     "stem2": stem.stem2_launches},
+                     "stem2": stem.stem2_launches,
+                     "stem_bf16": stem.bf16_launches},
         "kernels": {
             "nms": {"name": "nms", "route": "cuda",
                     "source": pkg + "csrc/nms.cu",
@@ -1231,6 +1315,10 @@ def main(argv: list[str]) -> int:
             "stem2": {"name": "stem2", "route": "cuda",
                       "source": pkg + "csrc/stem.cu",
                       "replaces": JAX_PKG + "/ops/pallas/stem_kernel.py:71"},
+            "stem_bf16": {"name": "stem_bf16", "route": "cuda",
+                          "source": pkg + "csrc/stem.cu",
+                          "replaces": JAX_PKG
+                          + "/ops/pallas/stem_kernel.py:130"},
         },
     }
     failed = []

@@ -5,7 +5,9 @@
 conv(5x5 SAME, Cin=1) + bias -> mfm2 (maxout 2) or efm3 (maxout 3) ->
 2x2/2 max-pool in one pass: x ``[B, H, W, 1]`` (H, W even), w
 ``[5, 5, 1, C]``, bias ``[C]`` -> ``[B, H/2, W/2, C_out]`` in x's dtype,
-f32 accumulation. A CUDA tensor launches the kernel; a CPU tensor runs
+f32 accumulation. A CUDA tensor launches the kernel (f32 on the CUDA
+cores, counted in ``launches``; bf16 on the tensor cores, counted in
+``bf16_launches``); a CPU tensor runs
 ``stem_conv_maxout_pool_plain``, the space-to-depth formulation of the JAX
 package's Pallas kernel (``ops/pallas/stem_kernel.py``): the packed 3x3x4
 conv in f32, f32 bias, maxout, then the max over the four phases.
@@ -31,6 +33,7 @@ from ..s2d_stem import pack_stem_weights, reference_stem, space_to_depth2
 from ._build import LaunchCount, check, load, require_cuda_or_cpu
 
 launches = LaunchCount("stem")
+bf16_launches = LaunchCount("stem_bf16")
 stem2_launches = LaunchCount("stem2")
 
 
@@ -87,7 +90,7 @@ def _fns():
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
         fns["stem2", dtype] = fn
-    lib.stem_smem_bytes.argtypes = [ctypes.c_int]
+    lib.stem_smem_bytes.argtypes = [ctypes.c_int] * 3
     lib.stem_smem_bytes.restype = ctypes.c_int
     return lib, fns
 
@@ -98,10 +101,13 @@ def _launch(x, w, bias, maxout):
     lib, fns = _fns()
     b, h, wd, _ = x.shape
     c = w.shape[3]
-    if lib.stem_smem_bytes(c) > 227 * 1024:
+    bf16 = x.dtype == torch.bfloat16
+    if lib.stem_smem_bytes(c, maxout, bf16) > 227 * 1024:
         raise ValueError(f"stem kernel: C={c} exceeds its shared memory")
     c_out = c // 2 if maxout == 2 else 2 * (c // 3)
     xc = x.contiguous()
+    if xc.data_ptr() % (2 * xc.element_size()):
+        xc = xc.clone()   # the kernels stage the image in aligned pairs
     # taps rounded to x's dtype (as the Pallas kernel feeds them), held f32
     wk = w.to(x.dtype).float().reshape(25, c).contiguous()
     bk = bias.float().contiguous()
@@ -113,15 +119,15 @@ def _launch(x, w, bias, maxout):
                       out.data_ptr(), b, h, wd, c, maxout,
                       torch.cuda.current_stream(x.device).cuda_stream)
     check(rc, "stem_conv_maxout_pool")
-    launches.count += 1
+    (bf16_launches if bf16 else launches).count += 1
     return out
 
 
 def stem_conv_maxout_pool(x: torch.Tensor, w: torch.Tensor,
                           bias: torch.Tensor, *,
                           maxout: int = 2) -> torch.Tensor:
-    """Fused stem: kernel B3 for a CUDA tensor, the plain version for a
-    CPU tensor."""
+    """Fused stem: kernel B3 for a CUDA tensor (f32 on the CUDA cores,
+    bf16 on the tensor cores), the plain version for a CPU tensor."""
     _check_args(x, w, bias, maxout)
     if require_cuda_or_cpu(x, "stem"):
         return _launch(x, w, bias, maxout)

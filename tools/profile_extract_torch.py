@@ -1,27 +1,33 @@
 #!/usr/bin/env python3
-"""Where the time of one LightCNN9 extraction batch goes, on one GPU
-(PyTorch port), with the fused front (kernel B6 at 128x128, kernel B4 at
-112x96) and with the unfused front.
+"""Where the time of one LightCNN9 or LightCNN29 extraction batch goes, on
+one GPU (PyTorch port), with the fused front and with the unfused one.
 
-Sets up LightCNN9 extraction as ``chip_smoke.py``'s extract phase runs it:
-batch 128 of uint8 synthetic faces (1,024 rows, held in host memory as the
-store hands them over), 128x128 or, with ``--hw 112x96``, their 112x96
-center crops, random weights from seed 0, TF32 off, through
+Sets up extraction as ``chip_smoke.py``'s extract phase runs it: batch 128
+of uint8 synthetic faces (1,024 rows, held in host memory as the store
+hands them over), 128x128 or, with ``--hw 112x96``, their 112x96 center
+crops, random weights from seed 0, TF32 off, through
 ``extract.extract_features`` (per batch: a pageable copy to the card, /255
 there, the forward, L2 normalization, top-1, the copy back). For each
-pass, in the order fused, unfused, unfused, fused (the unfused front is
-the model's layer-by-layer path on the card: kernel B3's stem, then cuDNN's
-conv2a and conv2, mfm2 and the pool, routed there by replacing
-``lightcnn9_front_route`` in this process), it times WINDOWS
+pass, in the order fused, unfused, unfused, fused, it times WINDOWS
 unprofiled windows of at least SECONDS of back-to-back batches, then traces
-TRACED batches with ``torch.profiler``. Prints one JSON line per pass: wall
-ms per batch and embeddings/s of each window, device ms per batch by kernel
+TRACED batches with ``torch.profiler``. The fused front is the model's own
+path: for LightCNN9 kernel B6 at 128x128 or kernel B4 at 112x96; for
+LightCNN29 (``--model lightcnn29``) kernel B3 (group1: the 5x5 conv, efm3
+and the pool in one pass) with kernel B2 in every later efm3. The unfused
+front, routed in this process only: LightCNN9's layer-by-layer path (B3's
+stem, then cuDNN's conv2a and conv2, mfm2 and the pool, by replacing
+``lightcnn9_front_route``); LightCNN29's ``reference_stem`` (cuDNN's conv,
+efm3 and the pool, by replacing the stem kernel's wrapper that
+``models/lightcnn.py`` calls). Prints one JSON line per pass: wall ms per
+batch and embeddings/s of each window, device ms per batch by kernel
 family and the top kernels, the device's idle share (1 - device ms / the
 unprofiled wall ms per batch, both from this process), and last the card's
 name and power limit. ``--bf16`` runs the same passes with the net in
-bfloat16 (cuDNN and B6's bf16 kernel on the tensor cores, f32 sums).
+bfloat16 (cuDNN and the kernels' bf16 instances on the tensor cores, f32
+sums).
 
-    python tools/profile_extract_torch.py [--bf16] [--hw 112x96]
+    python tools/profile_extract_torch.py [--model lightcnn9|lightcnn29]
+                                          [--bf16] [--hw 112x96]
 
 Needs CUDA.
 """
@@ -37,8 +43,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 FAMILIES = (("front9", "front9_kernel"), ("front9_bf16", "front9_tc_kernel"),
-            ("stem2", "stem2_kernel"),
-            ("stem", "stem_kernel"), ("memcpy", "memcpy"), ("conv", "conv"),
+            ("stem2", "stem2_kernel"), ("stem_bf16", "stem_tc_kernel"),
+            ("stem", "stem_kernel"), ("efm3", "efm3_kernel"), ("memcpy", "memcpy"), ("conv", "conv"),
             ("conv", "cudnn"), ("conv", "implicit"), ("conv", "winograd"),
             ("conv", "xmma"),
             ("gemm", "gemm"), ("gemm", "cutlass"), ("pool", "pool"),
@@ -76,6 +82,9 @@ def main(argv: list[str]) -> int:
         lightcnn,
         model_by_name,
     )
+    from improving_face_recognition_performance_using_triplet_loss_tpu_torch.ops.s2d_stem import (
+        reference_stem,
+    )
 
     h, w = SIDE, SIDE
     if "--hw" in argv:
@@ -85,10 +94,20 @@ def main(argv: list[str]) -> int:
     images = (faces[:, y0:y0 + h, x0:x0 + w] * 255.0).clip(0, 255).astype(
         "uint8")
     dtype = torch.bfloat16 if "--bf16" in argv else torch.float32
-    model = model_by_name("lightcnn9", 1000, input_hw=(h, w),
+    name = argv[argv.index("--model") + 1] if "--model" in argv else \
+        "lightcnn9"
+    if name not in ("lightcnn9", "lightcnn29"):
+        print(f"profile_extract_torch: --model takes lightcnn9 or "
+              f"lightcnn29, got {name}", file=sys.stderr)
+        return 2
+    model = model_by_name(name, 1000, input_hw=(h, w),
                           dtype=dtype,
                           generator=torch.Generator().manual_seed(0))
     route = lightcnn.lightcnn9_front_route
+    fused_stem = lightcnn.stem_conv_maxout_pool
+
+    def unfused_stem(x, w, b, *, maxout):
+        return reference_stem(x, w, b, maxout=maxout)
     batches_per_call = ROWS // EXTRACT_BATCH
 
     def window(seconds: float) -> tuple[int, float]:
@@ -101,8 +120,12 @@ def main(argv: list[str]) -> int:
                 return n, dt
 
     for mode in ORDER:
-        lightcnn.lightcnn9_front_route = route if mode == "fused" else (
-            lambda *a, **k: "plain")
+        if name == "lightcnn9":
+            lightcnn.lightcnn9_front_route = route if mode == "fused" else (
+                lambda *a, **k: "plain")
+        else:
+            lightcnn.stem_conv_maxout_pool = (fused_stem if mode == "fused"
+                                              else unfused_stem)
         window(1.0)                                     # warm-up
         wins = []
         for _ in range(WINDOWS):
@@ -129,7 +152,7 @@ def main(argv: list[str]) -> int:
             short[name[:80]] += ms / TRACED
         top = sorted(short.items(), key=lambda kv: -kv[1])[:10]
         print(json.dumps({
-            "mode": mode, "dtype": str(dtype).split(".")[1],
+            "model": name, "mode": mode, "dtype": str(dtype).split(".")[1],
             "batch": EXTRACT_BATCH, "hw": [h, w],
             "wall_ms_per_batch_windows": wins,
             "embeddings_per_s_windows": [EXTRACT_BATCH / w * 1e3
@@ -144,6 +167,7 @@ def main(argv: list[str]) -> int:
             "top_kernels_ms": dict(top),
         }), flush=True)
     lightcnn.lightcnn9_front_route = route
+    lightcnn.stem_conv_maxout_pool = fused_stem
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
