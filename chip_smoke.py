@@ -19,7 +19,25 @@ before it and read just after:
   first rows, plus ``--bf16`` runs of LightCNN9 (B6 on the tensor cores)
   and LightCNN29 (B3 on the tensor cores) held to the f32 ones;
 - LightCNN9 serving: ``serve_demo --streams 16 --model lightcnn9
-  --image-size 128`` at 240x320 (B5, B6), rerun on the CPU.
+  --image-size 128`` at 240x320 (B5, B6), rerun on the CPU;
+- backbone training: ``train_backbone`` with LightCNN29 at 128x128,
+  batch 64 pairs, 55,005 classes, f32, ``--mining semi_hard_fused``, for
+  3 steps and 2 eval steps from an mmap store (B1 once a step, B2 forward
+  30 times a train step and 29 an eval step, B2's backward ``efm3_bwd``
+  30 times a train step, B3 in the eval forward), its B1 picks held to the
+  plain version's on the same features, each of its steps rerun from the
+  same state through the plain route (plain B1, plain efm3 autograd: the
+  losses, and every parameter's gradient, which must be there and
+  nonzero), one 8-pair step rerun on the CPU; then ``--epochs 2
+  --prefetch 2 --scan-chunk 2`` and ``--resume``, the export in the
+  port's extractor and ``train_final``, and 2 steps each of EFMNet342 at
+  64x64, LightCNN9 at 128x128 and LightCNN29 with ``--bf16``.
+
+The efm3 phase also holds the backward kernel ``efm3_bwd`` bit for bit to
+the plain version's autograd (every shape of a LightCNN29 training step,
+tie-rich inputs in four dtypes) and proves that an input that requires a
+gradient gets one through ``ops.mfm.efm3`` on the card; the mining phase
+also checks the backbone steps' shapes.
 
     python3 chip_smoke.py                  # every phase
     python3 chip_smoke.py front9 extract   # the build and these phases
@@ -61,11 +79,22 @@ STREAMS, FRAME_HW, IMAGE = 16, (240, 320), 64
 HEAD_BATCH, FEAT_DIM, EMB_DIM = 16384, 342, 128
 HEAD_IDS, HEAD_PER_ID, HEAD_EPOCHS = 4096, 16, 2
 
+# the backbone slice: LightCNN29 at 128x128, batch 64 pairs (128 images a
+# step), f32 with TF32 off, semi_hard_fused mining, an ID softmax over
+# 55,005 classes: the 0.7 train split of Celeb1M's 78,579 identities
+# (README.md:23-26); synthetic faces stand in for the images
+BACKBONE_PAIRS, BACKBONE_CLASSES, BACKBONE_SIDE = 64, 55005, 128
+# a parameter's gradient through the kernels vs the plain route, by
+# relative norm (_plain_route_steps)
+BACKBONE_GRAD_RTOL = 1e-4
+
 # the kernels each path launches (the counts are read per path)
 PATH_KERNELS = {"slice": ("nms", "stem", "efm3"), "head": ("mining",),
                 "extract": ("front9", "front9_bf16", "stem2", "stem",
                             "stem_bf16", "efm3"),
-                "serve9": ("nms", "front9")}
+                "serve9": ("nms", "front9"),
+                "backbone": ("mining", "efm3", "efm3_bwd", "stem",
+                             "front9", "stem2")}
 
 
 def slice_argv(frames: int, device: str) -> list[str]:
@@ -510,16 +539,115 @@ def phase_efm3(ctx):
     ctx["kernels"]["efm3"].update(max_abs_err=worst, ms=ms, plain_ms=plain_ms,
                                   bound_ms=bound_ms, bound_by=bound_by,
                                   library_ms=lib_ms)
+    bwd = efm3_backward_checks(torch, efm3, gen)
+    ctx["kernels"]["efm3_bwd"].update(
+        max_abs_err=bwd["max_abs_err"], ms=bwd["step_ms"],
+        plain_ms=bwd["step_plain_ms"], bound_ms=bwd["step_bound_ms"],
+        bound_by=bwd["step_bound_by"], library_ms=None)
     ok = worst == 0.0 and all(all(v["exact"].values())
-                              for v in shapes.values())
+                              for v in shapes.values()) and bwd["ok"]
     return {"ok": ok, "tolerance": "exact (f32, bf16, f16, f64; NaN "
-                                   "positions equal)",
+                                   "positions equal); backward bit-equal "
+                                   "to the plain autograd in every dtype",
+            "backward": bwd,
             "calls_per_forward": calls, "forward_ms": ms,
             "forward_plain_ms": plain_ms, "forward_aminmax_ms": lib_ms,
             "forward_bound_ms": bound_ms,
             "host_us_per_call": host / calls,
             "aminmax_host_us_per_call": lib_host / calls,
             "host_parts": host_parts, "shapes": shapes}
+
+
+# EFM3 calls of one LightCNN29 training step at 128x128, batch BACKBONE_PAIRS
+# pairs (2 x 64 = 128 images): (rows, channels) -> calls, forward and
+# backward alike. The unfused stem's efm3 runs at full resolution; groups
+# 2-5 at 64, 32, 16, 8; fc1's last.
+def lightcnn29_train_efm3(images: int) -> dict[tuple[int, int], int]:
+    b = images
+    return {(b * 128 * 128, 99): 1,
+            (b * 64 * 64, 66): 1, (b * 64 * 64, 99): 2,
+            (b * 64 * 64, 198): 1,
+            (b * 32 * 32, 132): 2, (b * 32 * 32, 198): 3,
+            (b * 32 * 32, 387): 1,
+            (b * 16 * 16, 258): 3, (b * 16 * 16, 387): 4,
+            (b * 16 * 16, 261): 1,
+            (b * 8 * 8, 174): 4, (b * 8 * 8, 261): 6,
+            (b, 1026): 1}
+
+
+def _bits(torch, t):
+    view = {torch.float32: torch.int32, torch.float64: torch.int64,
+            torch.bfloat16: torch.int16, torch.float16: torch.int16}
+    return t.contiguous().view(view[t.dtype])
+
+
+def efm3_backward_checks(torch, efm3, gen) -> dict:
+    """Kernel ``efm3_bwd`` against the plain version's autograd
+    (``efm3_rows_bwd_plain``), bit for bit: at every shape of a LightCNN29
+    training step (random inputs), on tie-rich inputs (small integers,
+    NaN, -0.0 gradients) in f32, bf16, f16 and f64, and the C5 proof: an
+    input that requires a gradient gets one through ``ops.mfm.efm3`` on the
+    card, equal to the plain autograd's. Then each path shape is timed
+    (kernel and plain) and summed over a step's calls with the bound."""
+    from improving_face_recognition_performance_using_triplet_loss_tpu_torch.ops import (
+        mfm,
+    )
+
+    cases, worst = {}, 0.0
+    step_ms = step_plain = nbytes = ops = 0.0
+    for (rows, c), n in lightcnn29_train_efm3(2 * BACKBONE_PAIRS).items():
+        x = torch.randn(rows, c, generator=gen).cuda()
+        g = torch.randn(rows, 2 * (c // 3), generator=gen).cuda()
+        got = efm3.efm3_rows_bwd(x, g)
+        want = efm3.efm3_rows_bwd_plain(x, g)
+        torch.cuda.synchronize()
+        worst = max(worst, float((got - want).abs().max()))
+        k = time_ms(torch, lambda: efm3.efm3_rows_bwd(x, g),
+                    10 if rows > 1 << 20 else 30)
+        p = time_ms(torch, lambda: efm3.efm3_rows_bwd_plain(x, g),
+                    3 if rows > 1 << 20 else 10, warmup=1)
+        step_ms, step_plain = step_ms + n * k, step_plain + n * p
+        # x and g read once, dx written once
+        nbytes += n * (2 * rows * c + rows * 2 * (c // 3)) * 4
+        ops += n * rows * c * 4   # ~4 compares and selects an input
+        cases[f"{rows}x{c}"] = {"calls": n, "bit_equal": bool(torch.equal(
+            _bits(torch, got), _bits(torch, want))), "ms": k,
+            "plain_ms": p}
+        del x, g, got, want
+    rng = torch.Generator().manual_seed(11)
+    ties = {}
+    for dt in (torch.float32, torch.bfloat16, torch.float16, torch.float64):
+        for rows, c in ((4096, 99), (8192, 261), (128, 1026)):
+            x = torch.randint(-2, 3, (rows, c), generator=rng).double()
+            x[torch.rand(rows, c, generator=rng) < 0.02] = float("nan")
+            g = torch.randn(rows, 2 * (c // 3), generator=rng).double()
+            g[torch.rand(g.shape, generator=rng) < 0.1] = -0.0
+            xd, gd = x.to(dt).cuda(), g.to(dt).cuda()
+            got = efm3.efm3_rows_bwd(xd, gd)
+            want = efm3.efm3_rows_bwd_plain(xd, gd)
+            ties[f"{str(dt).split('.')[1]}_{rows}x{c}"] = bool(torch.equal(
+                _bits(torch, got), _bits(torch, want)))
+    # C5: a gradient through ops.mfm.efm3 on the card, from the kernel
+    x = torch.randint(-2, 3, (16, 32, 32, 99), generator=rng).float().cuda()
+    x.requires_grad_(True)
+    g = torch.randn(16, 32, 32, 66, generator=rng).cuda()
+    before = efm3.bwd_launches.count
+    mfm.efm3(x).backward(g)
+    launched = efm3.bwd_launches.count - before
+    xp = x.detach().clone().requires_grad_(True)
+    mfm.efm3_plain(xp).backward(g)
+    c5 = {"grad_not_none": x.grad is not None,
+          "bwd_kernel_launched": launched == 1,
+          "grad_bit_equal_plain_autograd": x.grad is not None and bool(
+              torch.equal(_bits(torch, x.grad), _bits(torch, xp.grad)))}
+    bound_ms, bound_by = bound(nbytes, ops)
+    ok = (worst == 0.0 and all(v["bit_equal"] for v in cases.values())
+          and all(ties.values()) and all(c5.values()))
+    return {"ok": ok, "max_abs_err": worst, "path_cases": cases,
+            "tie_cases_bit_equal": ties, "c5": c5,
+            "calls_per_step": sum(lightcnn29_train_efm3(1).values()),
+            "step_ms": step_ms, "step_plain_ms": step_plain,
+            "step_bound_ms": bound_ms, "step_bound_by": bound_by}
 
 
 def _serving_checks(torch, out, cpu, dim: int) -> tuple[dict, dict]:
@@ -694,7 +822,13 @@ def phase_mining(ctx):
              # D > 128: the anchor chunks stream through the ring as well
              "wide_d_300x2000x160": _int_rows(torch, rng, 300, 2000, 160,
                                               30),
-             "path_shape_int": _int_rows(torch, rng, b, n, EMB_DIM, HEAD_IDS)}
+             "path_shape_int": _int_rows(torch, rng, b, n, EMB_DIM, HEAD_IDS),
+             # the backbone steps' calls: B pairs, a 2B pool, the feature
+             # width of LightCNN29, EFMNet342 and LightCNN9
+             **{f"backbone_{bb}x{2 * bb}x{d}": _int_rows(
+                 torch, rng, bb, 2 * bb, d, 40)
+                for bb, d in ((BACKBONE_PAIRS, 684), (BACKBONE_PAIRS, 342),
+                              (2 * BACKBONE_PAIRS, 256))}}
     lib = mining._lib()
     cases = {}
     for name, x in exact.items():
@@ -1222,10 +1356,430 @@ def read_launches_from(ctx, launches: dict[str, int]) -> None:
             ctx["kernels"][name]["launches"] = n
 
 
+def backbone_faces(rows: int, side: int, seed: int):
+    """``rows`` synthetic faces at ``side``, 4 a identity, each identity
+    given a distinct class in [0, BACKBONE_CLASSES), the last class among
+    them (so the CLI's class count is BACKBONE_CLASSES)."""
+    import numpy as np
+
+    from improving_face_recognition_performance_using_triplet_loss_tpu_torch.data import (
+        synthetic_faces,
+    )
+
+    faces, labels = synthetic_faces(num_ids=rows // 4, per_id=4, size=side,
+                                    seed=seed)
+    rng = np.random.default_rng(seed)
+    classes = np.append(rng.choice(BACKBONE_CLASSES - 1, rows // 4 - 1,
+                                   replace=False), BACKBONE_CLASSES - 1)
+    return faces, classes[labels]
+
+
+def _bb_argv(store, out, model, epochs, *extra):
+    return ["--images", store, "--model", model, "--epochs", str(epochs),
+            "--batch-size", str(BACKBONE_PAIRS), "--mining",
+            "semi_hard_fused", "--device", "cuda", "--out-dir", out, *extra]
+
+
+def _mining_agrees(torch, calls) -> tuple[int, bool]:
+    """B1's picks on the steps' own features against the plain version's:
+    the number of differing indices, and whether each difference is a
+    near-tie (the kernel's pick within 1e-5 of the plain pick's distance,
+    recomputed in float64, as phase_mining holds the path shape)."""
+    from improving_face_recognition_performance_using_triplet_loss_tpu_torch.ops.cuda import (
+        mining,
+    )
+
+    differing, near = 0, True
+    for (anc, pos_sq, al, pool, pl), got in calls:
+        want = mining.semi_hard_mining_plain(anc, pos_sq, al, pool, pl)
+        diff = (got != want)
+        differing += int(diff.sum())
+        if diff.any():
+            dist = lambda idx: ((anc.double() - pool[idx.long()].double())  # noqa: E731
+                                ** 2).sum(1)
+            near = near and bool(((dist(got) - dist(want)).abs()[diff]
+                                  <= 1e-5).all())
+    return differing, near
+
+
+def _train_record_mining(ctx, argv):
+    """``train_backbone.main(argv)`` with the launch counts set to 0 just
+    before and read just after, and every B1 call's inputs and picks
+    recorded."""
+    import torch
+
+    from improving_face_recognition_performance_using_triplet_loss_tpu_torch.cli import (
+        train_backbone,
+    )
+    from improving_face_recognition_performance_using_triplet_loss_tpu_torch.train import (
+        steps as steps_mod,
+    )
+
+    calls, real = [], steps_mod.semi_hard_mining
+
+    def recording(*args):
+        out = real(*args)
+        calls.append(([a.detach().clone() for a in args], out.clone()))
+        return out
+
+    steps_mod.semi_hard_mining = recording
+    try:
+        for c in ctx["counters"].values():
+            c.reset()
+        state, hist = train_backbone.main(argv)
+        torch.cuda.synchronize()
+        launches = {k: ctx["counters"][k].count
+                    for k in PATH_KERNELS["backbone"]}
+    finally:
+        steps_mod.semi_hard_mining = real
+    return state, hist, launches, calls
+
+
+def _keep_grads(state) -> list:
+    """Make ``state``'s next update first copy each parameter's gradient
+    (None where it has none) into the returned list."""
+    kept, update = [], state.apply_update
+
+    def apply_update():
+        kept[:] = [None if q.grad is None else q.grad.detach().clone()
+                   for q in state.model.parameters()]
+        update()
+
+    state.apply_update = apply_update
+    return kept
+
+
+def _rel_gaps(torch, got, want) -> list:
+    """Per parameter, ``||got - want|| / ||want||`` of two gradient
+    lists."""
+    return [float(torch.linalg.vector_norm((g - w).double())
+                  / torch.linalg.vector_norm(w.double()))
+            for g, w in zip(got, want)]
+
+
+def _plain_route_steps(ctx, torch, store) -> dict:
+    """The full-width steps of the run against the plain route from the
+    same states: the CLI's batches (its batcher and host mirror, seed 0),
+    the CLI's init and optimizer; before each step the state is copied
+    twice, the step runs through the kernels (B1, B2 and ``efm3_bwd``),
+    and each copy takes the same step through the plain route (B1's plain
+    version, efm3's plain version with its autograd: no B1, B2 or
+    ``efm3_bwd`` launch). The steps take a triplet margin of 2 so that the
+    triplet term, the only path into ``fc1_bn``, is on in every step.
+
+    Held: the forwards are the same but for B1's picks, which differ only
+    at a 1e-5 near-tie, so each step's losses agree to rtol 1e-5 and the
+    cosines to 1e-5; every parameter gets a nonzero gradient through the
+    kernels (C5 for the whole model), and each parameter's gradient is
+    within ``BACKBONE_GRAD_RTOL`` (relative norm) of the plain route's as
+    the optimizer receives it. The two plain copies measure the floor of
+    that comparison: cuDNN's backward sums in a run-dependent order.
+    (Whole runs part after a differing pick, and the weights after the
+    update say little: Adam's first updates are the sign of each gradient
+    element.)"""
+    import copy
+
+    import numpy as np
+
+    from improving_face_recognition_performance_using_triplet_loss_tpu_torch.cli.train_backbone import (
+        MirrorBatches,
+    )
+    from improving_face_recognition_performance_using_triplet_loss_tpu_torch.data import (
+        ShardedPairBatcher,
+        load_image_store_mmap,
+    )
+    from improving_face_recognition_performance_using_triplet_loss_tpu_torch.models import (
+        model_by_name,
+    )
+    from improving_face_recognition_performance_using_triplet_loss_tpu_torch.ops import (
+        mfm as mfm_mod,
+    )
+    from improving_face_recognition_performance_using_triplet_loss_tpu_torch.ops.cuda import (
+        efm3,
+        mining,
+    )
+    from improving_face_recognition_performance_using_triplet_loss_tpu_torch.train import (
+        TrainState,
+        backbone_optimizer,
+        create_train_state,
+        make_backbone_train_step,
+        steps as steps_mod,
+    )
+
+    images, labels = load_image_store_mmap(store)
+    batcher = ShardedPairBatcher((images, labels), BACKBONE_PAIRS, seed=0)
+    model = model_by_name("lightcnn29", BACKBONE_CLASSES,
+                          input_hw=(BACKBONE_SIDE, BACKBONE_SIDE),
+                          generator=torch.Generator().manual_seed(0))
+    spec = backbone_optimizer("adam", decay_every_steps=6 * len(batcher))
+    state = create_train_state(model, spec, 0)
+    step = make_backbone_train_step(mining_mode="semi_hard_fused",
+                                    margin=2.0)
+    names = [n for n, _ in state.model.named_parameters()]
+
+    def twin_of(state):
+        twin_model = copy.deepcopy(state.model)
+        twin_opt = spec.build(twin_model.parameters())
+        twin_opt.load_state_dict(copy.deepcopy(
+            state.optimizer.state_dict()))
+        return TrainState(model=twin_model, optimizer=twin_opt, seed=0,
+                          step=state.step, spec=spec)
+
+    gaps, plain_launches = [], 0
+    for a, p, lab in MirrorBatches(batcher, True, 0):
+        twins = [twin_of(state), twin_of(state)]
+        kept = _keep_grads(state)
+        _, mk = step(state, a, p, lab)
+        del state.apply_update   # the class's method again
+        saved = steps_mod.semi_hard_mining, mfm_mod.efm3_rows
+        steps_mod.semi_hard_mining = mining.semi_hard_mining_plain
+        mfm_mod.efm3_rows = efm3.efm3_rows_plain
+        before = sum(ctx["counters"][k].count
+                     for k in ("mining", "efm3", "efm3_bwd"))
+        try:
+            plain_kept = [_keep_grads(t) for t in twins]
+            mp = [step(t, a, p, lab)[1] for t in twins][0]
+        finally:
+            steps_mod.semi_hard_mining, mfm_mod.efm3_rows = saved
+        plain_launches += sum(ctx["counters"][k].count for k in (
+            "mining", "efm3", "efm3_bwd")) - before
+        gap = {k: float((mk[k] - mp[k]).abs().max()) for k in mk}
+        gap["params"] = max(float((u - v).abs().max()) for u, v in zip(
+            state.model.state_dict().values(),
+            twins[0].model.state_dict().values()))
+        missing = [n for n, g in zip(names, kept)
+                   if g is None or not bool(g.abs().max() > 0)]
+        rel = _rel_gaps(torch, kept, plain_kept[0]) if not missing else []
+        floor = _rel_gaps(torch, plain_kept[1], plain_kept[0])
+        worst = int(np.argmax(rel)) if rel else 0
+        gaps.append({**gap, "loss": float(mk["loss"]),
+                     "plain_loss": float(mp["loss"]),
+                     "triplet_loss": float(mk["tl_loss"]),
+                     "params_without_grad": missing,
+                     "grad_rel_gap": max(rel, default=None),
+                     "grad_rel_gap_at": names[worst] if rel else None,
+                     "plain_vs_plain_grad_rel_gap": max(floor)})
+        del twins, kept, plain_kept
+    ok = plain_launches == 0 and all(
+        abs(g["loss"] - g["plain_loss"]) <= 1e-5 * abs(g["plain_loss"])
+        for g in gaps) and all(
+        g["pos_cos"] <= 1e-5 and g["neg_cos"] <= 1e-5 for g in gaps)
+    grads_ok = all(not g["params_without_grad"]
+                   and g["grad_rel_gap"] <= BACKBONE_GRAD_RTOL
+                   for g in gaps)
+    return {"ok": bool(ok and grads_ok), "grads_ok": bool(grads_ok),
+            "grad_rtol": BACKBONE_GRAD_RTOL, "steps": gaps,
+            "plain_route_launches": plain_launches,
+            "finite": bool(np.isfinite([g["loss"] for g in gaps]).all())}
+
+
+def _cpu_step_agrees(torch, images, labels) -> dict:
+    """One LightCNN29 train step of 8 pairs on the card and on the CPU from
+    the same weights and batch (dropout off on both: the two devices'
+    generators draw different masks): the metrics agree (losses rtol 1e-4,
+    cosines atol 1e-3: the card's and the CPU's f32 convs sum in other
+    orders, and the training BatchNorm magnifies that over 16 rows)."""
+    import numpy as np
+
+    from improving_face_recognition_performance_using_triplet_loss_tpu_torch.data import (
+        ShardedPairBatcher,
+    )
+    from improving_face_recognition_performance_using_triplet_loss_tpu_torch.models import (
+        model_by_name,
+    )
+    from improving_face_recognition_performance_using_triplet_loss_tpu_torch.models.lightcnn import (
+        Dropout,
+    )
+    from improving_face_recognition_performance_using_triplet_loss_tpu_torch.train import (
+        backbone_optimizer,
+        create_train_state,
+        make_backbone_train_step,
+    )
+
+    a, p, l = next(iter(ShardedPairBatcher((images, labels), 8,
+                                           shuffle=False)))
+    out = {}
+    for dev in ("cuda", "cpu"):
+        model = model_by_name("lightcnn29", BACKBONE_CLASSES,
+                              input_hw=(BACKBONE_SIDE, BACKBONE_SIDE),
+                              generator=torch.Generator().manual_seed(5),
+                              device=dev)
+        for m in model.modules():
+            if isinstance(m, Dropout):
+                m.p = 0.0
+        state = create_train_state(model, backbone_optimizer("adam"), 0)
+        _, m = make_backbone_train_step(mining_mode="semi_hard_fused")(
+            state, a, p, l)
+        out[dev] = {k: v.cpu().numpy() for k, v in m.items()}
+    gap = {k: float(np.abs(out["cuda"][k] - out["cpu"][k]).max())
+           for k in out["cpu"]}
+    ok = all(abs(out["cuda"][k] - out["cpu"][k]) <= 1e-4 * max(
+        abs(float(out["cpu"][k])), 1.0) for k in ("loss", "id_loss",
+                                                     "tl_loss"))
+    ok = ok and gap["pos_cos"] <= 1e-3 and gap["neg_cos"] <= 1e-3
+    return {"ok": bool(ok), "max_gap": gap,
+            "cpu_loss": float(out["cpu"]["loss"])}
+
+
+def phase_backbone(ctx):
+    """``train_backbone`` on the card (module docstring): the full-width
+    LightCNN29 run with its B1 picks held to the plain version's and its
+    losses to the plain route's, one small step rerun on the CPU, the
+    resumed run with prefetch and scan chunks, its export in the port's
+    extractor and in ``train_final``, EFMNet342, LightCNN9 and LightCNN29
+    in bf16."""
+    import numpy as np
+    import torch
+
+    from improving_face_recognition_performance_using_triplet_loss_tpu_torch.cli import (
+        train_backbone,
+        train_final,
+    )
+    from improving_face_recognition_performance_using_triplet_loss_tpu_torch.data import (
+        load_image_store_mmap,
+        save_image_store,
+        save_image_store_mmap,
+    )
+    from improving_face_recognition_performance_using_triplet_loss_tpu_torch.extract import (
+        extract_features,
+    )
+    from improving_face_recognition_performance_using_triplet_loss_tpu_torch.serve.convert import (
+        from_jax_params,
+    )
+    from improving_face_recognition_performance_using_triplet_loss_tpu_torch.serve.export import (
+        load_exported_params,
+    )
+
+    side, pairs = BACKBONE_SIDE, BACKBONE_PAIRS
+    checks, report = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        faces, labels = backbone_faces(4 * pairs, side, seed=0)
+        store = os.path.join(tmp, "train")
+        save_image_store_mmap(store, faces, labels)
+        evals = os.path.join(tmp, "eval.npz")
+        save_image_store(evals, *backbone_faces(2 * pairs, side, seed=1))
+        three = os.path.join(tmp, "three")   # 3 steps of 64 pairs
+        save_image_store_mmap(three, faces[:3 * pairs], labels[:3 * pairs])
+
+        # (1) 3 full-width steps and 2 eval steps, B1's picks recorded
+        def argv_a(out):
+            return _bb_argv(three, os.path.join(tmp, out), "lightcnn29", 1,
+                            "--eval-images", evals)
+
+        state, hist, launches, calls = _train_record_mining(ctx, argv_a("a"))
+        read_launches_from(ctx, launches)
+        checks["cli_turned_tf32_off"] = tf32_off()
+        losses = [s["loss"] for s in hist[0].steps]
+        train_steps, eval_steps = len(losses), 2
+        checks["three_train_steps"] = train_steps == 3 == state.step
+        checks["losses_finite"] = bool(np.isfinite(
+            losses + list(hist[0].valid.values())).all())
+        checks["b1_once_per_train_and_eval_step"] = (
+            launches["mining"] == train_steps + eval_steps == len(calls))
+        checks["b2_30_per_train_step_29_per_eval_step"] = (
+            launches["efm3"] == 30 * train_steps + 29 * eval_steps)
+        checks["efm3_bwd_30_per_train_step"] = (
+            launches["efm3_bwd"] == 30 * train_steps)
+        checks["b3_once_per_eval_step"] = launches["stem"] == eval_steps
+        differing, near = _mining_agrees(torch, calls)
+        checks["b1_picks_equal_plain_or_near_tie"] = near
+        plain = _plain_route_steps(ctx, torch, three)
+        checks["steps_agree_with_plain_route"] = plain["ok"] and len(
+            plain["steps"]) == 3
+        checks["every_param_grad_as_plain_route"] = plain["grads_ok"]
+        cpu = _cpu_step_agrees(torch, *load_image_store_mmap(three))
+        checks["small_step_agrees_with_cpu"] = cpu["ok"]
+        report["full_width"] = {
+            "model": "lightcnn29", "hw": [side, side], "pairs": pairs,
+            "classes": BACKBONE_CLASSES, "launches": launches,
+            "launches_per_train_step": {
+                "mining": 1, "efm3": (launches["efm3"] - 29 * eval_steps)
+                / train_steps, "efm3_bwd": launches["efm3_bwd"]
+                / train_steps},
+            "losses": losses, "valid": hist[0].valid,
+            "plain_route_steps": plain,
+            "b1_index_differences": differing,
+            "train_step_s": [s["seconds"] for s in hist[0].steps],
+            "cpu_small_step": cpu}
+
+        # (2) main twice: 2 epochs with prefetch and scan chunks, --resume
+        out = os.path.join(tmp, "b")
+        argv = _bb_argv(store, out, "lightcnn29", 2, "--prefetch", "2",
+                        "--scan-chunk", "2", "--eval-images", evals)
+        s1, h1 = train_backbone.main(argv)
+        s2, h2 = train_backbone.main(
+            _bb_argv(store, out, "lightcnn29", 3, "--prefetch", "2",
+                     "--scan-chunk", "2", "--eval-images", evals,
+                     "--resume"))
+        adam = s2.optimizer.state[next(s2.model.parameters())]
+        checks["resume_continues"] = (
+            s1.step == 8 and s2.step == 12 and [h.epoch for h in h2] == [2]
+            and int(adam["step"]) == 12)
+        checks["resumed_losses_finite"] = bool(np.isfinite(
+            [s["loss"] for h in h1 + h2 for s in h.steps]).all())
+        export = os.path.join(out, "export")
+        params, stats, manifest = load_exported_params(export)
+        net = from_jax_params(export)
+        rows = faces[:pairs]
+        got, _, _, _ = extract_features(net, rows)
+        want, _, _, _ = extract_features(s2.model, rows)
+        checks["export_extracts_as_trained_model"] = (
+            manifest["model"] == "lightcnn29" and "fc1_bn" in stats
+            and float(np.abs(got - want).max()) <= 1e-5)
+        fin_state, fin_hist = train_final.main([
+            "--images", store, "--export-dir", export, "--epochs", "1",
+            "--batch-size", str(pairs), "--mining", "semi_hard_fused",
+            "--device", "cuda", "--out-dir", os.path.join(tmp, "final")])
+        fparams, _, _ = load_exported_params(os.path.join(tmp, "final",
+                                                          "export"))
+        checks["train_final_on_export"] = (
+            fin_state.step == 4 and fparams["proj"]["kernel"].shape
+            == (684, 342) and bool(np.isfinite(
+                [s["loss"] for h in fin_hist for s in h.steps]).all()))
+        report["resumed"] = {"steps": [s1.step, s2.step],
+                             "losses": [s["loss"] for h in h1 + h2
+                                        for s in h.steps]}
+
+        # (3) EFMNet342 at 64x64, LightCNN9 at 128x128 and LightCNN29 with
+        # --bf16 (autocast: B2 and efm3_bwd in bf16), 2 steps each
+        for run, model, hw, extra, per_step in (
+                ("efmnet342", "efmnet342", 64, (),
+                 {"efm3": 30, "efm3_bwd": 30}),
+                ("lightcnn9", "lightcnn9", 128, (),
+                 {"efm3": 0, "efm3_bwd": 0, "front9": 0, "stem2": 0}),
+                ("lightcnn29_bf16", "lightcnn29", 128, ("--bf16",),
+                 {"efm3": 30, "efm3_bwd": 30})):
+            y0 = (side - hw) // 2
+            st = os.path.join(tmp, run)
+            save_image_store_mmap(st, faces[:2 * pairs, y0:y0 + hw,
+                                            y0:y0 + hw],
+                                  labels[:2 * pairs])
+            ms, mh, ml, _ = _train_record_mining(
+                ctx, _bb_argv(st, os.path.join(tmp, run + "_out"), model,
+                              1, *extra))
+            checks[f"{run}:two_finite_steps"] = ms.step == 2 and bool(
+                np.isfinite([s["loss"] for s in mh[0].steps]).all())
+            checks[f"{run}:launches"] = ml["mining"] == 2 and all(
+                ml[k] == n * 2 for k, n in per_step.items())
+            report[run] = {"launches": ml,
+                           "losses": [s["loss"] for s in mh[0].steps]}
+    return {"ok": all(checks.values()), "checks": checks,
+            "tolerance": "B1 picks equal the plain version's (a difference "
+                         "only at a 1e-5 near-tie); each step from the same "
+                         "state vs the plain route: losses rtol 1e-5, "
+                         "cosines atol 1e-5, each parameter's gradient "
+                         f"{BACKBONE_GRAD_RTOL} by relative norm and "
+                         "nonzero; small step vs CPU: losses "
+                         "rtol 1e-4, cosines atol 1e-3; export features "
+                         "1e-5",
+            **report}
+
+
 PHASES = {"build": phase_build, "nms": phase_nms, "stem": phase_stem,
           "efm3": phase_efm3, "mining": phase_mining, "front9": phase_front9,
           "stem2": phase_stem2, "slice": phase_slice, "head": phase_head,
-          "extract": phase_extract, "serve9": phase_serve9}
+          "extract": phase_extract, "serve9": phase_serve9,
+          "backbone": phase_backbone}
 
 
 def pytorch_defaults(torch) -> None:
@@ -1285,7 +1839,9 @@ def main(argv: list[str]) -> int:
     pkg = os.path.join(PKG, "")
     ctx = {
         "counters": {"nms": nms.launches, "stem": stem.launches,
-                     "efm3": efm3.launches, "mining": mining.launches,
+                     "efm3": efm3.launches,
+                     "efm3_bwd": efm3.bwd_launches,
+                     "mining": mining.launches,
                      "front9": front9.launches,
                      "front9_bf16": front9.tc_launches,
                      "stem2": stem.stem2_launches,
@@ -1300,6 +1856,12 @@ def main(argv: list[str]) -> int:
             "efm3": {"name": "efm3", "route": "cuda",
                      "source": pkg + "csrc/efm3.cu",
                      "replaces": JAX_PKG + "/ops/pallas/mfm_kernel.py:32"},
+            # no Pallas kernel has a backward: this is the gradient of B2
+            # (the JAX step differentiates its plain jnp efm3)
+            "efm3_bwd": {"name": "efm3_bwd", "route": "cuda",
+                         "source": pkg + "csrc/efm3.cu",
+                         "replaces": JAX_PKG
+                         + "/ops/pallas/mfm_kernel.py:32"},
             "mining": {"name": "mining", "route": "cuda",
                        "source": pkg + "csrc/mining.cu",
                        "replaces": JAX_PKG

@@ -1,1 +1,2 @@
-"""Losses of the port: the triplet loss of the head slice."""
+"""Losses of the port: triplet, softmax cross-entropy, the joint id +
+triplet objective and center loss."""

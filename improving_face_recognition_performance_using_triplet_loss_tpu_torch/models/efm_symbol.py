@@ -4,7 +4,8 @@ Port of the JAX package's ``models/efm_symbol.py``: a fused 5x5 stem (99
 filters, EFM3, pool), then four stages with the 99/198/387/261/261 ladder
 and residual counts [1, 2, 3, 4] (res blocks -> 1x1 conv -> EFM3 -> 3x3
 conv -> EFM3 -> 2x2 pool), then fc1 = Linear(513) -> EFM3 = the 342-d
-feature, Dropout(0.7) and the fc2 ID logits. Input ``[B, H, W, 1]``
+feature, Dropout(0.7) and the fc2 ID logits (``classify(embed(x))``, see
+``models/lightcnn.py``). Input ``[B, H, W, 1]``
 grayscale in [0, 1], H = W a multiple of 32 (64 at serving).
 
 Activations stay channel-last; fc1 flattens the channel-last ``[B, h, w, C]``
@@ -17,8 +18,8 @@ import torch
 import torch.nn as nn
 
 from ..ops.mfm import efm3
-from .lightcnn import (EFMResBlock, FlaxLayers, FusedStem, _maxpool2,
-                       finish_build, same_conv)
+from .lightcnn import (Dropout, EFMResBlock, FlaxLayers, FusedStem,
+                       _maxpool2, finish_build, same_conv)
 from .mtcnn import conv_nhwc
 
 # (num_r, num, tar_num) of stages 2-5 (efm_symbol.py:85-92 of the reference)
@@ -53,17 +54,19 @@ class EFMNet342(FlaxLayers):
             cin = num * 2 // 3
         side = image_size // 32
         self.fc1 = nn.Linear(side * side * cin, 513)
-        self.drop1 = nn.Dropout(0.7)
+        self.drop1 = Dropout(0.7)
         self.fc2 = nn.Linear(342, num_classes)
 
-    def forward(self, x: torch.Tensor):
+    def embed(self, x: torch.Tensor) -> torch.Tensor:
         x = self.conv1(x.to(self.fc1.weight.dtype))
         for res, c1, c3 in zip(self.res, self.conv1x1, self.conv):
             x = res(x)
             x = efm3(conv_nhwc(x, c1))
             x = efm3(conv_nhwc(x, c3))
             x = _maxpool2(x)
-        feat = efm3(self.fc1(x.reshape(x.shape[0], -1)))
+        return efm3(self.fc1(x.reshape(x.shape[0], -1)))
+
+    def classify(self, feat: torch.Tensor):
         logits = self.fc2(self.drop1(feat))
         return logits.float(), feat.float()
 

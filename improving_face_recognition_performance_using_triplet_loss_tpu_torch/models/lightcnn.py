@@ -17,7 +17,17 @@ On the card at inference, LightCNN9's conv1..pool2 runs kernel B6
 (``ops/cuda/front9.py``) or its conv1..conv2a kernel B4
 (``ops/cuda/stem.py``), as :func:`lightcnn9_front_route` decides, and the
 stems of the EFM nets run kernel B3; training and the CPU run the plain
-layers with the same weights.
+layers with the same weights (as the JAX training forward does), and every
+EFM3 runs kernel B2 with its backward kernel.
+
+In training mode (``train()``) the nets follow flax's training semantics:
+:class:`Dropout` keeps a unit with probability ``1 - p`` and draws from
+the generator the train step hands it, and LightCNN29's ``fc1_bn`` is a
+:class:`FlaxBatchNorm`. Each forward is ``classify(embed(x))``: ``embed``
+runs the layers up to the raw feature, ``classify`` the dropout, the ID
+logits and the feature's normalization, so a train step can recompute
+``embed`` in its backward (remat) without redrawing dropout or updating
+the BatchNorm statistics twice.
 """
 
 from __future__ import annotations
@@ -88,6 +98,67 @@ def flax_entry(conv: nn.Module) -> dict[str, np.ndarray]:
     return {"kernel": hwio(conv),
             "bias": np.ascontiguousarray(
                 conv.bias.detach().float().cpu().numpy())}
+
+
+class Dropout(nn.Module):
+    """flax's ``Dropout``: in training mode keep each unit with
+    probability ``1 - p`` and scale it by ``1 / (1 - p)``, drawing the
+    mask from ``generator`` (set by the train step to its step
+    generator; torch's default generator when None). The identity in eval
+    mode and at ``p = 0``."""
+
+    def __init__(self, p: float):
+        super().__init__()
+        self.p = p
+        self.generator: torch.Generator | None = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.p == 0.0:
+            return x
+        if self.p >= 1.0:
+            return torch.zeros_like(x)
+        u = torch.rand(x.shape, generator=self.generator, device=x.device)
+        return torch.where(u >= self.p, x / (1.0 - self.p),
+                           torch.zeros_like(x))
+
+
+class FlaxBatchNorm(nn.Module):
+    """flax's ``BatchNorm`` over the last axis of ``[B, C]``, in float32
+    whatever the input dtype, the result cast back to it.
+
+    Training mode normalizes with the batch's mean and its *biased*
+    variance ``max(0, mean(x^2) - mean^2)`` (flax's fast variance) and
+    moves the running statistics by ``momentum * running + (1 - momentum)
+    * batch`` with that same biased variance (flax's momentum 0.9 is
+    torch's 0.1, and ``nn.BatchNorm1d`` would move the variance with the
+    unbiased one). Eval mode normalizes with the running statistics.
+    ``weight`` / ``bias`` are flax's ``scale`` / ``bias``."""
+
+    def __init__(self, features: int, eps: float = 1e-5,
+                 momentum: float = 0.9):
+        super().__init__()
+        self.eps, self.momentum = eps, momentum
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.register_buffer("running_mean", torch.zeros(features))
+        self.register_buffer("running_var", torch.ones(features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
+        if self.training:
+            mean = xf.mean(0)
+            var = torch.clamp_min(torch.square(xf).mean(0)
+                                  - torch.square(mean), 0.0)
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.copy_(m * self.running_mean
+                                        + (1.0 - m) * mean)
+                self.running_var.copy_(m * self.running_var
+                                       + (1.0 - m) * var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        mul = torch.rsqrt(var + self.eps) * self.weight.float()
+        return ((xf - mean) * mul + self.bias.float()).to(x.dtype)
 
 
 class FusedStem(nn.Module):
@@ -190,10 +261,23 @@ def _maxpool2(x: torch.Tensor) -> torch.Tensor:
 class FlaxLayers(nn.Module):
     """A net whose conv and dense layers carry their flax tree paths
     (``_named_layers``), so its weights move to and from a flax params
-    tree and draw flax's init."""
+    tree and draw flax's init. ``forward(x)`` is ``classify(embed(x))``:
+    ``(logits, feature)``, both float32."""
 
     def _named_layers(self) -> list[tuple[tuple[str, ...], nn.Module]]:
         raise NotImplementedError
+
+    def embed(self, x: torch.Tensor) -> torch.Tensor:
+        """The layers up to the raw feature (before dropout and, in
+        LightCNN29, its BatchNorm)."""
+        raise NotImplementedError
+
+    def classify(self, feat: torch.Tensor):
+        """``(logits, feature)`` from the raw feature."""
+        raise NotImplementedError
+
+    def forward(self, x: torch.Tensor):
+        return self.classify(self.embed(x))
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator):
@@ -281,9 +365,8 @@ class LightCNN29(FlaxLayers):
             self.convs.append(EFMConv(rf * 2 // 3, cf, pre_filters=pf))
         h, w = (s // 32 for s in self.input_hw)
         self.fc1 = nn.Linear(h * w * 174, 1026)
-        # flax's momentum 0.9 is torch's 0.1; eval uses the running stats
-        self.fc1_bn = nn.BatchNorm1d(684, eps=1e-5, momentum=0.1)
-        self.fc2_drop = nn.Dropout(0.7)
+        self.fc1_bn = FlaxBatchNorm(684, eps=1e-5, momentum=0.9)
+        self.fc2_drop = Dropout(0.7)
         self.fc2 = nn.Linear(684, num_classes)
 
     def _named_layers(self):
@@ -323,11 +406,13 @@ class LightCNN29(FlaxLayers):
         return {"fc1_bn": {"mean": _np32(self.fc1_bn.running_mean),
                            "var": _np32(self.fc1_bn.running_var)}}
 
-    def forward(self, x: torch.Tensor):
+    def embed(self, x: torch.Tensor) -> torch.Tensor:
         x = self.group1(x.to(self.fc1.weight.dtype))
         for res, conv in zip(self.res, self.convs):
             x = _maxpool2(conv(res(x)))
-        feat = efm3(self.fc1(x.reshape(x.shape[0], -1)))
+        return efm3(self.fc1(x.reshape(x.shape[0], -1)))
+
+    def classify(self, feat: torch.Tensor):
         logits = self.fc2(self.fc2_drop(feat))
         return logits.float(), self.fc1_bn(feat).float()
 
@@ -397,7 +482,7 @@ class LightCNN9(FlaxLayers):
             setattr(self, name, same_conv(cin, cout, k))
         h, w = (s // 16 for s in self.input_hw)
         self.fc1 = nn.Linear(h * w * 128, 512)
-        self.fc2_drop = nn.Dropout(0.7)
+        self.fc2_drop = Dropout(0.7)
         self.fc2 = nn.Linear(256, num_classes)
         self._packed = None   # (key, B6 weights) for the last dtype used
 
@@ -440,14 +525,16 @@ class LightCNN9(FlaxLayers):
             x = mfm2(conv_nhwc(self.conv1(x), self.conv2a))
         return _maxpool2(mfm2(conv_nhwc(x, self.conv2)))
 
-    def forward(self, x: torch.Tensor):
+    def embed(self, x: torch.Tensor) -> torch.Tensor:
         x = self._front(x.to(self.fc1.weight.dtype))
         x = mfm2(conv_nhwc(x, self.conv3a))
         x = _maxpool2(mfm2(conv_nhwc(x, self.conv3)))
         for name in ("conv4a", "conv4", "conv5a", "conv5"):
             x = mfm2(conv_nhwc(x, getattr(self, name)))
         x = _maxpool2(x)
-        feat = mfm2(self.fc1(x.reshape(x.shape[0], -1)))
+        return mfm2(self.fc1(x.reshape(x.shape[0], -1)))
+
+    def classify(self, feat: torch.Tensor):
         logits = self.fc2(self.fc2_drop(feat))
         return logits.float(), feat.float()
 

@@ -9,7 +9,10 @@ defaults to the last one, the JAX layout (NHWC / ``[..., C]``):
 
 ``efm3`` runs on the ``[rows, C]`` view of the channel-last tensor: kernel
 B2 (``ops/cuda/efm3.py``, CUDA C++) on a CUDA tensor, its plain version on
-a CPU tensor; ``efm3_plain`` is the same function on any axis, in PyTorch.
+a CPU tensor; where a gradient is needed its backward is the kernel
+``efm3_bwd`` (or the plain version's autograd on the CPU), so training
+differentiates through it. ``efm3_plain`` is the same function on any
+axis, in PyTorch.
 """
 
 from __future__ import annotations

@@ -56,7 +56,8 @@ def reference_stem(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, *,
     max-pool. x [B, H, W, Cin] -> [B, H/2, W/2, C_out] (NHWC)."""
     xn = x.permute(0, 3, 1, 2)
     y = F.conv2d(xn, w.permute(3, 2, 0, 1).to(x.dtype), padding=2)
-    y = y + bias.to(x.dtype)[None, :, None, None]
+    # the conv's dtype: under autocast (bf16 training) it is not x's
+    y = y + bias.to(y.dtype)[None, :, None, None]
     y = y.permute(0, 2, 3, 1)
     y = mfm2(y) if maxout == 2 else efm3(y)
     y = F.max_pool2d(y.permute(0, 3, 1, 2), 2, 2)

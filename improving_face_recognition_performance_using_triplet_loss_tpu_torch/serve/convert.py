@@ -83,17 +83,20 @@ def _to_numpy(tree):
     return np.asarray(tree, np.float32)
 
 
-def export_model(out_dir: str, model: torch.nn.Module) -> str:
+def export_model(out_dir: str, model: torch.nn.Module,
+                 extra: dict | None = None) -> str:
     """Write an embedding net of the port (``EFMNet342``, ``LightCNN9``,
     ``LightCNN29``) as a JAX-loadable export (flax names, HWIO), with
-    LightCNN29's BatchNorm statistics under ``batch_stats/``."""
+    LightCNN29's BatchNorm statistics under ``batch_stats/`` and
+    ``extra`` manifest keys."""
     stats = getattr(model, "flax_batch_stats", None)
     return export_params(out_dir, model.flax_params(),
                          model_name=model.model_name,
                          feature_dim=model.feature_dim,
                          input_hw=model.input_hw,
                          input_channels=model.in_channels,
-                         batch_stats=stats() if stats else None)
+                         batch_stats=stats() if stats else None,
+                         extra=extra)
 
 
 def head_from_jax_params(params, *, device=None) -> LinearHead:

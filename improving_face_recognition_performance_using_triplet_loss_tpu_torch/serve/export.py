@@ -39,10 +39,12 @@ def _unflatten(flat: dict[str, np.ndarray]) -> dict:
 
 def export_params(out_dir: str, params: Any, *, model_name: str,
                   feature_dim: int, input_hw: tuple[int, int],
-                  input_channels: int = 1, batch_stats: Any = None) -> str:
+                  input_channels: int = 1, batch_stats: Any = None,
+                  extra: dict | None = None) -> str:
     """Write ``weights.npz`` + ``manifest.json`` of a flax-layout params
     tree (nested dicts of arrays) under ``out_dir``, with ``batch_stats``
-    (BatchNorm running statistics, flax layout) under ``batch_stats/``."""
+    (BatchNorm running statistics, flax layout) under ``batch_stats/``;
+    ``extra`` adds manifest keys (``{"precision": "bf16"}``)."""
     os.makedirs(out_dir, exist_ok=True)
     flat = _flatten(params, "params/")
     if batch_stats:
@@ -58,6 +60,8 @@ def export_params(out_dir: str, params: Any, *, model_name: str,
         "embedding_normalization": "l2",
         "tensors": sorted(flat.keys()),
     }
+    if extra:
+        manifest.update(extra)
     with open(os.path.join(out_dir, "manifest.json"), "w") as f:
         json.dump(manifest, f, indent=2)
     return out_dir

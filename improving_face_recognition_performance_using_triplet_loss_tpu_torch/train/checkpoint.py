@@ -4,8 +4,10 @@ The port's twin of the JAX package's ``train/checkpoint.py`` (which uses
 orbax, a JAX library), with the same interface: ``save(step, state,
 wait)``, ``latest_step``, ``restore``, ``wait`` and ``max_to_keep``. Each
 checkpoint is ``<directory>/<step>/state.pt``, written with ``torch.save``:
-the module's and the optimizer's state dicts, the EMA, the step and the
-seed. The two packages' checkpoints are not interchangeable; their exports
+the module's state dict (BatchNorm running statistics included), the
+optimizer's (every family's moments and counts), the EMA, ``aux`` (the
+center-loss table), the step and the seed, so a restored state continues
+the same sequence of updates. The two packages' checkpoints are not interchangeable; their exports
 (``serve/export.py``) are.
 """
 
@@ -41,6 +43,7 @@ class Checkpointer:
         blob = {"model": state.model.state_dict(),
                 "optimizer": state.optimizer.state_dict(),
                 "ema": state.ema, "ema_decay": state.ema_decay,
+                "aux": state.aux,
                 "step": state.step, "seed": state.seed}
         tmp = os.path.join(path, _FILE + ".tmp")
         torch.save(blob, tmp)
@@ -65,6 +68,7 @@ class Checkpointer:
         state.optimizer.load_state_dict(blob["optimizer"])
         state.ema = blob["ema"]
         state.ema_decay = blob["ema_decay"]
+        state.aux = blob.get("aux")
         state.step = int(blob["step"])
         state.seed = int(blob["seed"])
         return state

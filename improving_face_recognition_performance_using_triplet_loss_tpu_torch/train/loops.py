@@ -5,8 +5,9 @@ validation passes, the cosine-similarity CSV sink fed from each step's
 per-row metrics, per-epoch checkpoints with resume, and a guard that turns
 SIGTERM into a checkpoint and a clean stop. ``EpochStats`` also keeps each
 train step's scalar metrics and wall seconds (``steps``), which the JAX
-loop does not. ``scan_chunk`` (several steps per dispatch) belongs to the
-backbone trainer and comes with it (ROADMAP.md A8).
+loop does not. ``scan_chunk = K`` feeds a scanned step
+(``train.steps.make_scanned_step``) K stacked batches a call and drops an
+epoch's trailing partial chunk, as the JAX loop does.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ from dataclasses import dataclass, field
 from typing import Callable, Iterable
 
 import numpy as np
+import torch
 
 from ..eval.cosine import CosineSimilaritySink
 
@@ -79,6 +81,30 @@ def _scalars(metrics: dict, check_finite_key: str | None = None
     return out
 
 
+def _stack(parts):
+    return torch.stack(parts) if isinstance(parts[0], torch.Tensor) \
+        else np.stack(parts)
+
+
+def _chunked_batches(batches: Iterable, k: int):
+    """Stack k consecutive ``(anc, pos, lab)`` batches along a new leading
+    dim (on the batches' device, for tensors); drops a trailing partial
+    chunk."""
+    group: list = []
+    for batch in batches:
+        group.append(batch)
+        if len(group) == k:
+            yield tuple(_stack(parts) for parts in zip(*group))
+            group = []
+
+
+def _unstack_metrics(metrics: dict, k: int):
+    """``[K, ...]``-stacked metrics -> K per-step metric dicts (moved to
+    the host at once, so the chunk syncs once)."""
+    host = {key: v.cpu() for key, v in metrics.items()}
+    return tuple({key: v[i] for key, v in host.items()} for i in range(k))
+
+
 def _means(rows: list[dict[str, float]]) -> dict[str, float]:
     sums: dict[str, float] = {}
     for row in rows:
@@ -109,24 +135,33 @@ def train_loop(
     ``train_batches`` / ``eval_batches`` are zero-argument callables that
     return a fresh iterator of ``(anchor, positive, labels)``; the steps
     move each batch to the state's device. ``sink`` receives every train
-    batch's per-row ``pos_cos`` / ``neg_cos``."""
-    if scan_chunk > 1:
-        raise NotImplementedError(
-            "scan_chunk is the backbone trainer's option; it comes with the "
-            "backbone slice (ROADMAP.md queue A, item 8)")
+    batch's per-row ``pos_cos`` / ``neg_cos``.
+
+    ``scan_chunk > 1``: ``train_step`` is a scanned step consuming K
+    stacked batches a call; the batches that do not fill a last chunk are
+    dropped for that epoch (epochs reshuffle, so coverage rotates). Each
+    of the chunk's steps gets a ``steps`` row, its ``seconds`` the chunk's
+    time over K."""
     history: list[EpochStats] = []
+    dropped_logged = False
+    k = scan_chunk if scan_chunk > 1 else 1
     for epoch in range(start_epoch, epochs):
         tic = time.time()
         steps: list[dict[str, float]] = []
-        for anchor, positive, labels in train_batches():
+        batch_iter = (_chunked_batches(train_batches(), k) if k > 1
+                      else train_batches())
+        for anchor, positive, labels in batch_iter:
             t0 = time.perf_counter()
             state, metrics = train_step(state, anchor, positive, labels)
-            row = _scalars(metrics, check_finite_key="loss")
-            row["seconds"] = time.perf_counter() - t0
-            steps.append(row)
-            if sink is not None:
-                sink.append(metrics["pos_cos"].cpu().numpy(),
-                            metrics["neg_cos"].cpu().numpy())
+            per_step = _unstack_metrics(metrics, k) if k > 1 else (metrics,)
+            rows = [_scalars(m, check_finite_key="loss") for m in per_step]
+            seconds = (time.perf_counter() - t0) / k
+            for row, m in zip(rows, per_step):
+                row["seconds"] = seconds
+                steps.append(row)
+                if sink is not None:
+                    sink.append(m["pos_cos"].cpu().numpy(),
+                                m["neg_cos"].cpu().numpy())
             if preemption_guard is not None and preemption_guard.requested:
                 if checkpointer is not None:
                     # saved under the previous completed epoch, so --resume
@@ -135,6 +170,10 @@ def train_loop(
                 log.warning("preemption requested: checkpointed and "
                             "stopping at epoch %d", epoch)
                 return state, history
+        if k > 1 and not dropped_logged:
+            dropped_logged = True
+            log.info("scan_chunk=%d: trailing partial chunks are dropped "
+                     "per epoch (drop-last)", k)
         valid: list[dict[str, float]] = []
         if eval_step is not None and eval_batches is not None:
             for anchor, positive, labels in eval_batches():

@@ -1,12 +1,15 @@
-"""Train state: the module, its optimizer, an optional parameter EMA, the
-step counter and a base seed.
+"""Train state: the module, its optimizer and its spec, an optional
+parameter EMA, extra state (``aux``), the step counter and a base seed.
 
 Port of the JAX package's ``train/state.py``. The JAX state is a pytree
 threaded through a jitted step; here the step updates the module and the
-optimizer in place and returns the same state. Per-step random draws come
-from a generator derived from ``(seed, step)`` (:func:`step_generator`, the
-port's form of the JAX ``_step_keys`` fold-in), so a resumed run replays
-the same draws without storing a generator.
+optimizer in place and returns the same state. BatchNorm running
+statistics (the JAX ``batch_stats``) live in the module's buffers; ``aux``
+holds what else a step threads through, the center-loss table. Per-step
+random draws come from a generator derived from ``(seed, step)``
+(:func:`step_generator`, the port's form of the JAX ``_step_keys``
+fold-in), so a resumed run replays the same draws without storing a
+generator.
 """
 
 from __future__ import annotations
@@ -27,13 +30,19 @@ class TrainState:
     step: int = 0
     ema: dict[str, torch.Tensor] | None = None
     ema_decay: float = 0.0
+    spec: OptimizerSpec = dataclasses.field(default_factory=OptimizerSpec)
+    aux: torch.Tensor | None = None
 
     @property
     def device(self) -> torch.device:
         return next(self.model.parameters()).device
 
     def apply_update(self) -> None:
-        """Optimizer step, then the EMA, then ``step += 1``."""
+        """The scheduled rate, the optimizer step, then the EMA, then
+        ``step += 1``."""
+        lr = self.spec.lr_at(self.step)
+        for group in self.optimizer.param_groups:
+            group["lr"] = lr
         self.optimizer.step()
         if self.ema is not None:
             update_ema(self.ema, self.model, self.ema_decay)
@@ -41,12 +50,15 @@ class TrainState:
 
 
 def create_train_state(model: torch.nn.Module, tx: OptimizerSpec,
-                       seed: int) -> TrainState:
+                       seed: int, aux: torch.Tensor | None = None
+                       ) -> TrainState:
     """Wrap ``model`` (already initialised and on its device) with the
-    optimizer ``tx`` describes."""
+    optimizer ``tx`` describes; ``aux`` is extra state a step threads
+    through (the center-loss table, ``[num_classes, D]`` zeros to start)."""
     ema = init_ema(model) if tx.ema_decay > 0 else None
     return TrainState(model=model, optimizer=tx.build(model.parameters()),
-                      seed=int(seed), ema=ema, ema_decay=tx.ema_decay)
+                      seed=int(seed), ema=ema, ema_decay=tx.ema_decay,
+                      spec=tx, aux=aux)
 
 
 def step_generator(state: TrainState) -> torch.Generator:
