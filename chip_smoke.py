@@ -31,7 +31,16 @@ before it and read just after:
   nonzero), one 8-pair step rerun on the CPU; then ``--epochs 2
   --prefetch 2 --scan-chunk 2`` and ``--resume``, the export in the
   port's extractor and ``train_final``, and 2 steps each of EFMNet342 at
-  64x64, LightCNN9 at 128x128 and LightCNN29 with ``--bf16``.
+  64x64, LightCNN9 at 128x128 and LightCNN29 with ``--bf16``;
+- LFW (``lfw``): ``import_params --verify`` of both reference checkpoint
+  layouts (bit-equal round trips), ``lfw_eval`` over 6,000 pairs at
+  128x128 in bf16 with the imported LightCNN29 (B3 on the tensor cores, B2)
+  and with LightCNN9 (B6 on the tensor cores), held to the protocol over
+  the run's own embeddings, each kernel call of its first and last batch
+  held to the plain version on the same input, and its embeddings to the
+  plain route on the card and to an f32 CPU rerun; ``DeviceCascade`` over
+  512 frames of 250x250 (B5), its first call rerun on the CPU; and, with
+  cv2, ``align`` and ``lfw_run --align`` with ``--device-cascade``.
 
 The efm3 phase also holds the backward kernel ``efm3_bwd`` bit for bit to
 the plain version's autograd (every shape of a LightCNN29 training step,
@@ -94,7 +103,8 @@ PATH_KERNELS = {"slice": ("nms", "stem", "efm3"), "head": ("mining",),
                             "stem_bf16", "efm3"),
                 "serve9": ("nms", "front9"),
                 "backbone": ("mining", "efm3", "efm3_bwd", "stem",
-                             "front9", "stem2")}
+                             "front9", "stem2"),
+                "lfw": ("nms", "stem_bf16", "efm3", "front9_bf16")}
 
 
 def slice_argv(frames: int, device: str) -> list[str]:
@@ -1775,11 +1785,610 @@ def phase_backbone(ctx):
             **report}
 
 
+# the LFW slice (lfw_eval, lfw_run, import_params, align): LFW's protocol,
+# pairs.txt header "10\t300" = 10 folds of 300 same + 300 different pairs
+# = 6,000 pairs of 12,000 images, at the published 128x128 grayscale input
+# of LightCNN29 and LightCNN9, in bf16 at lfw_eval's batch of 256, 1,000
+# classes (lfw_eval's default); alignment at LFW's 250x250 RGB frames, 16
+# a DeviceCascade call, with the serving phase's permissive thresholds
+LFW_FOLDS, LFW_PER_FOLD, LFW_SIDE, LFW_BATCH = 10, 300, 128, 256
+LFW_CLASSES, LFW_IDS = 1000, 1500
+ALIGN_FRAMES, ALIGN_CALL, ALIGN_HW, ALIGN_TH = 512, 16, (250, 250), 0.3
+# the LFW-layout tree that align and lfw_run --align read (cv2): its
+# identities x frames (the first 64 frames: the two CLIs align one image a
+# call, 20-36 images/s with the cv2 I/O, so the tree is cut for time), and
+# its pairs.txt's folds x (same + different)
+ALIGN_TREE_IDS, ALIGN_TREE_PER_ID, ALIGN_TREE_PAIRS = 16, 4, 30
+# the least centered cosine (the cosine of the parts of the embeddings
+# that vary across images) of the kernel route's bf16 embeddings of the
+# first and last batch to the plain route's on the card, and of the first
+# batch's to the f32 CPU rerun. Random LightCNN29 embeddings vary by ~1.5%
+# of their length across images and bf16 moves them by ~0.5%, and the net
+# turns a one-ulp difference at its stem into as large a move for some
+# images: the plain bf16 route reads 0.86 to f32 on the card, and on the
+# CPU a plain stem that rounds once, as B3 bf16 does, reads 0.92 (median
+# 1.0) to the plain one. Set below two readings of each on the card
+# (0.877 / 0.857 LightCNN29, 0.9994 / 0.998 LightCNN9).
+LFW_CENTERED_MIN = {"lightcnn29": 0.85, "lightcnn9": 0.995}
+LFW_CENTERED_F32_MIN = {"lightcnn29": 0.83, "lightcnn9": 0.99}
+
+
+def lfw_pairs(seed: int):
+    """``(images [12000, 128, 128, 1] uint8, issame [6000])`` in LFW's
+    fold layout: identity patterns from ``synthetic_faces`` (1,500 of
+    them) with per-image noise; a fold's first 300 pairs are two images of
+    one identity, its last 300 of two."""
+    import numpy as np
+
+    from improving_face_recognition_performance_using_triplet_loss_tpu_torch.data import (
+        synthetic_faces,
+    )
+
+    base, labels = synthetic_faces(num_ids=LFW_IDS, per_id=1, size=LFW_SIDE,
+                                   seed=seed)
+    base = (base[np.argsort(labels), :, :, 0] * 255).astype(np.uint8)
+    rng = np.random.default_rng(seed)
+    ids, issame = [], []
+    for _ in range(LFW_FOLDS):
+        same = rng.integers(0, LFW_IDS, LFW_PER_FOLD)
+        a = rng.integers(0, LFW_IDS, LFW_PER_FOLD)
+        b = (a + rng.integers(1, LFW_IDS, LFW_PER_FOLD)) % LFW_IDS
+        ids += [np.stack([same, same], 1), np.stack([a, b], 1)]
+        issame += [True] * LFW_PER_FOLD + [False] * LFW_PER_FOLD
+    ids = np.concatenate(ids).reshape(-1)
+    noise = rng.integers(-12, 13, (ids.size, LFW_SIDE, LFW_SIDE), np.int16)
+    images = np.clip(base[ids].astype(np.int16) + noise, 0, 255).astype(
+        np.uint8)[..., None]
+    return images, np.asarray(issame)
+
+
+def _export_arrays(path: str):
+    import numpy as np
+
+    with np.load(os.path.join(path, "weights.npz")) as z:
+        return {k: z[k] for k in z.files}
+
+
+def _bit_equal(got: dict, want: dict) -> bool:
+    import numpy as np
+
+    return sorted(got) == sorted(want) and all(
+        got[k].dtype == want[k].dtype and np.array_equal(got[k], want[k])
+        for k in want)
+
+
+def lfw_imports(tmp: str) -> tuple[dict, dict]:
+    """The ``.params`` round trip of both reference layouts at 128x128
+    and 1,000 classes, random weights from seed 0: a shared-res LightCNN29
+    (and random BatchNorm statistics) written as a gluon file, an EFMNet342
+    as an EFM symbol file, each also exported by the port; ``import_params
+    --verify`` on the card must give the export's arrays bit for bit.
+    Returns ``({model: (original, imported) export dirs}, checks)``."""
+    import numpy as np
+    import torch
+
+    from improving_face_recognition_performance_using_triplet_loss_tpu_torch.cli import (
+        import_params,
+    )
+    from improving_face_recognition_performance_using_triplet_loss_tpu_torch.models import (
+        model_by_name,
+    )
+    from improving_face_recognition_performance_using_triplet_loss_tpu_torch.serve.export import (
+        export_params,
+    )
+    from improving_face_recognition_performance_using_triplet_loss_tpu_torch.utils.mxnet_import import (
+        efm_params_to_mxnet,
+        expand_shared_res,
+        gluon_lightcnn29_to_mxnet,
+        write_mxnet_params,
+    )
+
+    rng = np.random.default_rng(0)
+    stats = {"fc1_bn": {"mean": rng.normal(0, 0.5, 684).astype(np.float32),
+                        "var": rng.uniform(0.5, 2, 684).astype(np.float32)}}
+    hw = (LFW_SIDE, LFW_SIDE)
+    dirs, checks = {}, {}
+    for name in ("lightcnn29", "efmnet342"):
+        model = model_by_name(name, LFW_CLASSES, input_hw=hw,
+                              share_weights=name == "lightcnn29",
+                              generator=torch.Generator().manual_seed(0),
+                              device="cpu")
+        params = model.flax_params()
+        orig, imp = (os.path.join(tmp, f"{name}_{k}")
+                     for k in ("export", "imported"))
+        ckpt = os.path.join(tmp, f"{name}.params")
+        if name == "lightcnn29":
+            export_params(orig, expand_shared_res(params), model_name=name,
+                          feature_dim=684, input_hw=hw, batch_stats=stats)
+            write_mxnet_params(ckpt, *gluon_lightcnn29_to_mxnet(params,
+                                                                 stats))
+        else:
+            export_params(orig, params, model_name=name, feature_dim=342,
+                          input_hw=hw)
+            write_mxnet_params(ckpt, efm_params_to_mxnet(params))
+        import_params.main([ckpt, "--out-dir", imp, "--verify"])
+        checks[f"{name}:import_bit_equal"] = _bit_equal(
+            _export_arrays(imp), _export_arrays(orig))
+        dirs[name] = (orig, imp)
+    return dirs, checks
+
+
+class PathCalls:
+    """Within ``with``: the embedding nets' kernel calls (B3 or B6 once a
+    batch, which starts the batch, and B2 through ``ops.mfm``) go through
+    the kernels as on the path, and those of the batches in ``keep`` are
+    kept (a copy of each input and output) to be held to the plain
+    versions afterwards (:func:`hold_path_calls`). With ``plain=True``
+    the same calls go through the plain versions instead: no kernel is
+    launched."""
+
+    def __init__(self, keep=(), plain=False):
+        self.keep, self.plain = set(keep), plain
+        self.batch, self.calls = -1, []
+
+    def _call(self, kind, fn, args, kwargs, starts_batch):
+        self.batch += starts_batch
+        out = fn(*args, **kwargs)
+        if self.batch in self.keep:
+            self.calls.append((kind, self.batch, tuple(
+                a.clone() if i == 0 else a for i, a in enumerate(args)),
+                kwargs, out.clone()))
+        return out
+
+    def __enter__(self):
+        from improving_face_recognition_performance_using_triplet_loss_tpu_torch.models import (
+            lightcnn,
+        )
+        from improving_face_recognition_performance_using_triplet_loss_tpu_torch.ops import (
+            mfm,
+        )
+        from improving_face_recognition_performance_using_triplet_loss_tpu_torch.ops.cuda import (
+            efm3,
+            front9,
+            stem,
+        )
+
+        self._mods = lightcnn, mfm
+        self._saved = (lightcnn.stem_conv_maxout_pool, lightcnn.front9_chain,
+                       mfm.efm3_rows)
+        fns = ((stem.stem_conv_maxout_pool_plain,
+                lambda x, params, packed=None: front9.front9_plain(x, params),
+                efm3.efm3_rows_plain) if self.plain else self._saved)
+        lightcnn.stem_conv_maxout_pool = lambda *a, **k: self._call(
+            "stem", fns[0], a, k, 1)
+        lightcnn.front9_chain = lambda x, params, packed=None: self._call(
+            "front9", fns[1], (x, params), {"packed": packed}, 1)
+        mfm.efm3_rows = lambda x: self._call("efm3", fns[2], (x,), {}, 0)
+        return self
+
+    def __exit__(self, *exc):
+        lightcnn, mfm = self._mods
+        (lightcnn.stem_conv_maxout_pool, lightcnn.front9_chain,
+         mfm.efm3_rows) = self._saved
+        return False
+
+
+def _plain_call(efm3, front9, stem, kind, args, kwargs):
+    if kind == "efm3":
+        return efm3.efm3_rows_plain(*args)
+    if kind == "stem":
+        return stem.stem_conv_maxout_pool_plain(*args, **kwargs)
+    return front9.front9_plain(*args)
+
+
+def hold_path_calls(torch, calls) -> dict:
+    """Each kept kernel call against its plain version on the same input
+    (the path's own inputs and shapes): B2 bit for bit, B3 within 1e-2 and
+    B6 within 2e-2 (the stem and front9 phases' bf16 tolerances), with the
+    bf16 ulps by which the roundings differ. Per counter name: calls,
+    input shapes, worst error, ok."""
+    from improving_face_recognition_performance_using_triplet_loss_tpu_torch.ops.cuda import (
+        efm3,
+        front9,
+        stem,
+    )
+
+    out = {}
+    for kind, batch, args, kwargs, got in calls:
+        x = args[0]
+        with torch.no_grad():
+            want = _plain_call(efm3, front9, stem, kind, args, kwargs)
+        tol, name = {"efm3": (0.0, "efm3"), "stem": (1e-2, "stem"),
+                     "front9": (2e-2, "front9")}[kind]
+        if x.dtype == torch.bfloat16 and kind != "efm3":
+            name += "_bf16"
+        got_f, want_f = got.float(), want.float()
+        err = float((got_f - want_f).abs().max())
+        if tol:
+            ok = bool(torch.allclose(got_f, want_f, rtol=tol, atol=tol)
+                      and want_f.abs().mean() > 1e-2)
+        else:
+            ok = bool(torch.equal(got, want))
+        rec = out.setdefault(name, {"calls": 0, "batches": set(),
+                                    "shapes": set(), "max_abs_err": 0.0,
+                                    "max_ulps": 0.0, "tolerance": tol,
+                                    "ok": True})
+        rec["calls"] += 1
+        rec["batches"].add(batch)
+        rec["shapes"].add("x".join(map(str, x.shape)))
+        rec["max_abs_err"] = max(rec["max_abs_err"], err)
+        if x.dtype == torch.bfloat16:
+            rec["max_ulps"] = max(rec["max_ulps"], float(
+                bf16_ulps(torch, got, want).max()))
+        rec["ok"] = rec["ok"] and ok
+    for rec in out.values():
+        rec["batches"] = sorted(rec["batches"])
+        rec["shapes"] = sorted(rec["shapes"])
+    return out
+
+
+def _cosines(a, b):
+    import numpy as np
+
+    return (a * b).sum(1) / (np.linalg.norm(a, axis=1)
+                             * np.linalg.norm(b, axis=1))
+
+
+def lfw_eval_runs(ctx, store: str, export: str, model: str, runs: int,
+                  issame) -> dict:
+    """``lfw_eval --images`` through its ``main`` on the card ``runs``
+    times, timed. The first run is the checked one: its launch counts are
+    read around it, its embeddings kept, and its kernel calls of the first
+    and last batch held to the plain versions (the extractor pads the last
+    batch, 224 images, with 32 zero images: every call is at 256); its
+    result must equal the protocol over its embeddings, and every later
+    run's result the first's. Then the first and last batch again through
+    the plain route on the card (no launch), and the first batch through
+    the f32 CPU route: the kernel route's embeddings by cosine to each,
+    also centered (less the reference's mean over the rows compared: the
+    part of an embedding that varies across images)."""
+    import numpy as np
+    import torch
+
+    from improving_face_recognition_performance_using_triplet_loss_tpu_torch.cli import (
+        lfw_eval,
+    )
+    from improving_face_recognition_performance_using_triplet_loss_tpu_torch.serve.convert import (
+        from_jax_params,
+    )
+
+    argv = ["--images", store, "--export-dir", export, "--model", model,
+            "--batch-size", str(LFW_BATCH)]
+    rows = 2 * issame.size
+    last = (rows - 1) // LFW_BATCH * LFW_BATCH
+    batches = last // LFW_BATCH + 1
+    kept, results, seconds = [], [], []
+    saved = lfw_eval.pair_embeddings
+    lfw_eval.pair_embeddings = lambda *a: kept.append(saved(*a)) or kept[-1]
+    try:
+        for run in range(runs):
+            for c in ctx["counters"].values():
+                c.reset()
+            rec = PathCalls(keep=(0, batches - 1) if run == 0 else ())
+            t0 = time.perf_counter()
+            with rec:
+                results.append(lfw_eval.main(argv))
+                torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+            if run == 0:
+                launches = read_launches(ctx, "lfw")
+                tf32 = tf32_off()
+                calls = hold_path_calls(torch, rec.calls)
+                del rec
+    finally:
+        lfw_eval.pair_embeddings = saved
+    emb = kept[0]
+    args = lfw_eval.build_parser().parse_args(argv)
+    own = lfw_eval.evaluate_pairs(emb[0::2], emb[1::2], issame, args)
+    with np.load(store) as z:
+        ends = np.concatenate([z["images"][:LFW_BATCH], z["images"][last:]])
+    net = lfw_eval.build_model(args, ends.shape, torch.device("cuda"))
+    before = sum(c.count for c in ctx["counters"].values())
+    with PathCalls(plain=True):
+        plain = lfw_eval.pair_embeddings(net, ends, LFW_BATCH)
+        torch.cuda.synchronize()
+    plain_launches = sum(c.count for c in ctx["counters"].values()) - before
+    cpu = lfw_eval.pair_embeddings(from_jax_params(export, device="cpu"),
+                                   ends[:LFW_BATCH], LFW_BATCH)
+    card = np.concatenate([emb[:LFW_BATCH], emb[last:]]).astype(np.float64)
+    plain = plain.astype(np.float64)
+    first, plain_first = card[:LFW_BATCH], plain[:LFW_BATCH]
+    f32_mean, plain_mean = cpu.mean(0), plain.mean(0)
+    centered = _cosines(card - plain_mean, plain - plain_mean)
+    cos = {
+        "kernel_vs_plain_route_min": float(_cosines(card, plain).min()),
+        "kernel_vs_plain_route_centered_min": float(centered.min()),
+        "kernel_vs_plain_route_centered_median": float(np.median(centered)),
+        "kernel_vs_f32_cpu_min": float(_cosines(first, cpu).min()),
+        "kernel_vs_f32_cpu_centered_min": float(_cosines(
+            first - f32_mean, cpu - f32_mean).min()),
+        "plain_route_vs_f32_cpu_centered_min": float(_cosines(
+            plain_first - f32_mean, cpu - f32_mean).min()),
+        # how far the images' embeddings differ: |e - mean| / |e|
+        "spread_median": float(np.median(
+            np.linalg.norm(cpu - f32_mean, axis=1)
+            / np.linalg.norm(cpu, axis=1)))}
+    checks = {
+        "cli_turned_tf32_off": tf32,
+        "result_equals_evaluate_of_own_embeddings": own == results[0],
+        "results_equal_across_runs": all(r == results[0] for r in results),
+        "path_calls_equal_plain": all(r["ok"] for r in calls.values()),
+        "plain_route_launched_nothing": plain_launches == 0,
+        f"first_{LFW_BATCH}_cos_vs_f32_cpu_min_{BF16_COS_MIN}":
+            cos["kernel_vs_f32_cpu_min"] >= BF16_COS_MIN,
+        f"centered_cos_vs_plain_route_min_{LFW_CENTERED_MIN[model]}":
+            cos["kernel_vs_plain_route_centered_min"]
+            >= LFW_CENTERED_MIN[model],
+        f"centered_cos_vs_f32_cpu_min_{LFW_CENTERED_F32_MIN[model]}":
+            cos["kernel_vs_f32_cpu_centered_min"]
+            >= LFW_CENTERED_F32_MIN[model],
+        "finite": bool(np.isfinite(emb).all()),
+        "shape": emb.shape[0] == rows}
+    return {"checks": checks, "result": results[0], "launches": launches,
+            "batches": batches, "path_calls": calls, **cos,
+            "pairs_per_s": [issame.size / t for t in seconds]}
+
+
+def align_frames(n: int, seed: int):
+    """``n`` seeded noise frames at LFW's 250x250 RGB, uint8."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return rng.integers(0, 256, (n,) + ALIGN_HW + (3,), np.uint8)
+
+
+def _boxes_agree(card, cpu) -> bool:
+    import numpy as np
+
+    return all(a[0].shape == b[0].shape and a[1].shape == b[1].shape
+               and np.allclose(a[0], b[0], rtol=0, atol=1e-3)
+               and np.allclose(a[1], b[1], rtol=0, atol=1e-3)
+               for a, b in zip(card, cpu))
+
+
+def lfw_detect(ctx, frames) -> dict:
+    """``DeviceCascade.detect_batch`` over the frames in calls of 16 (4 B5
+    launches a call), once counted, then three timed windows; the first
+    call rerun on the CPU with the same weights."""
+    import warnings
+
+    import torch
+
+    from improving_face_recognition_performance_using_triplet_loss_tpu_torch.detect import (
+        MTCNNDetector,
+    )
+    from improving_face_recognition_performance_using_triplet_loss_tpu_torch.detect.device_cascade import (
+        DeviceCascade,
+    )
+
+    th = (ALIGN_TH,) * 3
+    cascade = DeviceCascade(MTCNNDetector(seed=0), thresholds=th)
+    calls = range(0, len(frames), ALIGN_CALL)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        for c in ctx["counters"].values():
+            c.reset()
+        first = cascade.detect_batch(frames[:ALIGN_CALL])
+        first_stats = dict(cascade.last_stats)
+        for i in calls[1:]:
+            cascade.detect_batch(frames[i:i + ALIGN_CALL])
+        torch.cuda.synchronize()
+        launches = read_launches(ctx, "lfw")
+        windows = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            for i in calls:
+                cascade.detect_batch(frames[i:i + ALIGN_CALL])
+            torch.cuda.synchronize()
+            windows.append(len(frames) / (time.perf_counter() - t0))
+        cpu = DeviceCascade(MTCNNDetector(seed=0, device="cpu"),
+                            thresholds=th)
+        cpu_first = cpu.detect_batch(frames[:ALIGN_CALL])
+    checks = {
+        "nms_launches_4_a_call": launches["nms"] == 4 * len(calls),
+        "only_nms_launched": sum(launches.values()) == launches["nms"],
+        "first_call_boxes_points_atol_1e-3_vs_cpu": _boxes_agree(first,
+                                                                 cpu_first),
+        "first_call_last_stats_equal_cpu": cpu.last_stats == first_stats,
+        "detections": first_stats["detections"] > 0}
+    return {"checks": checks, "launches": launches,
+            "calls": len(calls), "frames_per_s": windows,
+            "first_call_stats": first_stats,
+            "saturation_warnings": len(caught)}
+
+
+def biased_det_weights(tmp: str) -> list[str]:
+    """det1-3.npy of the seed-0 detector with its face heads' biases set to
+    (-3, 3): random nets score ~0.5 everywhere, so this is what lets them
+    pass align's and lfw_run's default thresholds (0.6, 0.7, 0.7); the
+    cascade and everything after it run as with trained weights."""
+    import numpy as np
+
+    from improving_face_recognition_performance_using_triplet_loss_tpu_torch.detect import (
+        MTCNNDetector,
+    )
+
+    det = MTCNNDetector(seed=0, device="cpu")
+    paths = []
+    for i, (net, head) in enumerate(((det.pnet, "conv4-1"),
+                                     (det.rnet, "conv5-1"),
+                                     (det.onet, "conv6-1"))):
+        params = net.params()
+        params[head]["biases"] = np.asarray([-3.0, 3.0], np.float32)
+        paths.append(os.path.join(tmp, f"det{i + 1}.npy"))
+        np.save(paths[-1], params, allow_pickle=True)
+    return paths
+
+
+def lfw_tree(tmp: str, frames) -> tuple[str, str]:
+    """An LFW-layout tree of the first frames written with cv2 as JPEG
+    (``<Name>/<Name>_NNNN.jpg``) and a pairs.txt over it in LFW's fold
+    layout (10 folds of ALIGN_TREE_PAIRS same + different pairs)."""
+    import cv2
+    import numpy as np
+
+    tree = os.path.join(tmp, "lfw_tree")
+    names = [f"Person_{i:04d}" for i in range(ALIGN_TREE_IDS)]
+    for i, name in enumerate(names):
+        os.makedirs(os.path.join(tree, name))
+        for k in range(ALIGN_TREE_PER_ID):
+            img = frames[i * ALIGN_TREE_PER_ID + k]
+            cv2.imwrite(os.path.join(tree, name, f"{name}_{k + 1:04d}.jpg"),
+                        cv2.cvtColor(img, cv2.COLOR_RGB2BGR))
+    rng = np.random.default_rng(3)
+    lines = [f"{LFW_FOLDS}\t{ALIGN_TREE_PAIRS}"]
+    for _ in range(LFW_FOLDS):
+        for i in rng.integers(0, ALIGN_TREE_IDS, ALIGN_TREE_PAIRS):
+            a, b = rng.choice(ALIGN_TREE_PER_ID, 2, replace=False) + 1
+            lines.append(f"{names[i]}\t{a}\t{b}")
+        for i in rng.integers(0, ALIGN_TREE_IDS, ALIGN_TREE_PAIRS):
+            j = (i + rng.integers(1, ALIGN_TREE_IDS)) % ALIGN_TREE_IDS
+            a, b = rng.integers(1, ALIGN_TREE_PER_ID + 1, 2)
+            lines.append(f"{names[i]}\t{a}\t{names[j]}\t{b}")
+    pairs = os.path.join(tmp, "pairs.txt")
+    with open(pairs, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    return tree, pairs
+
+
+def lfw_align_clis(ctx, tmp: str, frames, export: str) -> dict:
+    """``align --device-cascade`` and ``lfw_run --align --device-cascade``
+    over an LFW-layout tree of the frames (cv2), with the biased detector
+    weights: every image aligned, 4 B5 launches an image, every pair
+    resolved and scored by the imported LightCNN29."""
+    import warnings
+
+    import numpy as np
+    import torch
+
+    from improving_face_recognition_performance_using_triplet_loss_tpu_torch.cli import (
+        align,
+        lfw_run,
+    )
+
+    tree, pairs = lfw_tree(tmp, frames)
+    weights = biased_det_weights(tmp)
+    images = ALIGN_TREE_IDS * ALIGN_TREE_PER_ID
+    n_pairs = 2 * LFW_FOLDS * ALIGN_TREE_PAIRS
+    out = {}
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)   # saturation
+        for c in ctx["counters"].values():
+            c.reset()
+        t0 = time.perf_counter()
+        res = align.main([tree, os.path.join(tmp, "aligned"),
+                          "--device-cascade", "--det-weights", *weights])
+        torch.cuda.synchronize()
+        out["align"] = {"seconds": time.perf_counter() - t0,
+                        "aligned": res.aligned, "total": res.total,
+                        "launches": read_launches(ctx, "lfw")}
+        for c in ctx["counters"].values():
+            c.reset()
+        t0 = time.perf_counter()
+        rows = lfw_run.main(["--lfw", tree, "--pairs", pairs, "--align",
+                             "--device-cascade", "--det-weights", *weights,
+                             "--export-dir", export])
+        torch.cuda.synchronize()
+        out["lfw_run"] = {"seconds": time.perf_counter() - t0,
+                          "row": rows[0], "launches": read_launches(ctx, "lfw")}
+    batches = -(-2 * n_pairs // LFW_BATCH)
+    run_launches = out["lfw_run"]["launches"]
+    out["checks"] = {
+        "align:all_aligned": res.total == res.aligned == images,
+        "align:nms_4_an_image": out["align"]["launches"]["nms"] == 4 * images,
+        "lfw_run:all_pairs": rows[0]["n_pairs"] == n_pairs,
+        "lfw_run:finite": bool(np.isfinite([rows[0][k] for k in (
+            "accuracy_mean", "val", "far")]).all()),
+        "lfw_run:nms_4_an_image": run_launches["nms"] == 4 * images,
+        "lfw_run:stem_bf16_a_batch": run_launches["stem_bf16"] == batches,
+        "lfw_run:efm3_29_a_batch": run_launches["efm3"] == 29 * batches}
+    return out
+
+
+def phase_lfw(ctx):
+    """The LFW slice on the card: ``import_params --verify`` of a gluon
+    LightCNN29 and an EFM-symbol EFMNet342 (bit-equal round trips), then
+    ``lfw_eval --images`` over 6,000 synthetic pairs in bf16 with the
+    imported LightCNN29 (B3 bf16 once and B2 29 times a batch of 256;
+    three timed runs) and with a LightCNN9 export (B6 bf16 once a batch;
+    one run), each checked as :func:`lfw_eval_runs` says; then
+    ``DeviceCascade.detect_batch`` over 512 frames of 250x250 (B5 four
+    times a call), its first call rerun on the CPU; and, where cv2 is
+    installed, ``align --device-cascade`` and ``lfw_run --align
+    --device-cascade`` over an LFW-layout tree of the first frames."""
+    import importlib.util
+
+    import numpy as np
+    import torch
+
+    from improving_face_recognition_performance_using_triplet_loss_tpu_torch.models import (
+        build_lightcnn9,
+    )
+    from improving_face_recognition_performance_using_triplet_loss_tpu_torch.serve.convert import (
+        export_model,
+    )
+
+    report, checks = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        dirs, import_checks = lfw_imports(tmp)
+        checks.update(import_checks)
+        report["import_s"] = time.perf_counter() - t0
+        images, issame = lfw_pairs(seed=0)
+        store = os.path.join(tmp, "pairs.npz")
+        np.savez(store, images=images, issame=issame)
+        del images
+        dir9 = os.path.join(tmp, "lightcnn9_export")
+        export_model(dir9, build_lightcnn9(
+            LFW_CLASSES, input_hw=(LFW_SIDE, LFW_SIDE),
+            generator=torch.Generator().manual_seed(0), device="cpu"))
+        for model, export, runs, kernels in (
+                ("lightcnn29", dirs["lightcnn29"][1], 3, ("stem_bf16", 1,
+                                                         "efm3", 29)),
+                ("lightcnn9", dir9, 1, ("front9_bf16", 1))):
+            t0 = time.perf_counter()
+            run = lfw_eval_runs(ctx, store, export, model, runs, issame)
+            want = dict.fromkeys(PATH_KERNELS["lfw"], 0)
+            for name, per_batch in zip(kernels[::2], kernels[1::2]):
+                want[name] = per_batch * run["batches"]
+            checks[f"{model}:launches"] = run["launches"] == want
+            checks.update({f"{model}:{k}": v
+                           for k, v in run.pop("checks").items()})
+            report[model] = {**run, "seconds": time.perf_counter() - t0}
+
+        t0 = time.perf_counter()
+        frames = align_frames(ALIGN_FRAMES, seed=0)
+        det = lfw_detect(ctx, frames)
+        checks.update({f"detect_batch:{k}": v
+                       for k, v in det.pop("checks").items()})
+        report["detect_batch"] = {**det, "seconds": time.perf_counter() - t0}
+        if importlib.util.find_spec("cv2") is None:
+            emit({"cv2": False, "not_run": ["align", "lfw_run"]})
+        else:
+            emit({"cv2": True})
+            clis = lfw_align_clis(ctx, tmp, frames, dirs["lightcnn29"][1])
+            checks.update(clis.pop("checks"))
+            report.update(clis)
+    emit({"lfw_eval_pairs_per_s": report["lightcnn29"]["pairs_per_s"],
+          "detect_batch_frames_per_s": report["detect_batch"]["frames_per_s"]})
+    return {"ok": all(checks.values()), "checks": checks, **report,
+            "tolerance": "import arrays bit-equal; lfw_eval results equal "
+                         "the protocol over the run's own embeddings; the "
+                         "first and last batch's kernel calls: B2 bit-equal "
+                         "to plain, B3 bf16 1e-2, B6 bf16 2e-2; bf16 "
+                         f"embeddings cosine >= {BF16_COS_MIN} to an f32 "
+                         "CPU rerun, centered cosine >= LFW_CENTERED_MIN to "
+                         "the plain route on the card and >= "
+                         "LFW_CENTERED_F32_MIN to the f32 CPU rerun; "
+                         "cascade boxes and points atol 1e-3 vs the CPU, "
+                         "counts and last_stats equal"}
+
+
 PHASES = {"build": phase_build, "nms": phase_nms, "stem": phase_stem,
           "efm3": phase_efm3, "mining": phase_mining, "front9": phase_front9,
           "stem2": phase_stem2, "slice": phase_slice, "head": phase_head,
           "extract": phase_extract, "serve9": phase_serve9,
-          "backbone": phase_backbone}
+          "backbone": phase_backbone, "lfw": phase_lfw}
 
 
 def pytorch_defaults(torch) -> None:

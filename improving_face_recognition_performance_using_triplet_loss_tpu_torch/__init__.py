@@ -1,5 +1,5 @@
 """PyTorch + CUDA port of facejax: serving, extraction, triplet-head and
-backbone training.
+backbone training, LFW verification, alignment and checkpoint import.
 
 A second package beside the JAX reference
 (``improving_face_recognition_performance_using_triplet_loss_tpu``). It
@@ -18,13 +18,17 @@ JAX twin:
                 optimizer families, checkpoints and the epoch loop.
 - ``data``, ``eval`` — pair batching (in memory and streamed), feature and
                 image stores, batch transforms, device prefetching,
-                synthetic data; the cosine-similarity sink and plots.
-- ``detect``  — the batched on-device MTCNN cascade.
+                synthetic data, LFW pairs; the cosine-similarity sink and
+                plots, the LFW verification protocol.
+- ``detect``  — the MTCNN detector: its host cascade, the batched
+                on-device cascade (``DeviceCascade``), dataset alignment.
 - ``serve``   — weight export/import and the fused recognition pipelines.
+- ``utils``   — the MXNet ``.params`` reader / writer and mappings.
 - ``cli``     — ``serve_demo --streams N``, ``extract_features``,
                 ``train_backbone``, ``train_final``, ``pack_dataset``,
                 ``train_head``, ``eval_cos``, ``draw_cos``,
-                ``slice_dataset``.
+                ``slice_dataset``, ``lfw_eval``, ``lfw_run``, ``align``,
+                ``import_params``.
 
 Every entry point runs on ``cuda`` unless the caller passes
 ``device="cpu"``; with no CUDA present the default device raises.

@@ -1,7 +1,8 @@
 """Data of the port: positive-pair batching (in memory and streamed from
 an mmap store), the feature store, the image store I/O and writer, the
-training batch transforms, device prefetching and synthetic features and
-faces (numpy copies of the JAX package's numpy modules)."""
+training batch transforms, device prefetching, synthetic features and
+faces, and the LFW pairs file (numpy copies of the JAX package's numpy
+modules)."""
 
 from .feature_store import (  # noqa: F401
     load_feature_store,

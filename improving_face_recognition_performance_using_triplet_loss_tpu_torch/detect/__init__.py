@@ -1,3 +1,4 @@
-"""Face detection: the MTCNN detector and its batched on-device cascade."""
+"""Face detection: the MTCNN detector with its host cascade, the batched
+on-device cascade, and dataset alignment."""
 
-from .pipeline import MTCNNDetector  # noqa: F401
+from .pipeline import MTCNNDetector, detect_faces  # noqa: F401

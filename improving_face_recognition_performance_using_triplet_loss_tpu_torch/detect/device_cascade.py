@@ -7,10 +7,15 @@ RNet and ONet, thresholds, box regression and squaring, and the stage-2
 (0.7 Union) and stage-3 (0.7 Min) NMS, each one launch of kernel B5 for all
 frames. The JAX version maps one frame and is ``vmap``-ed; here the frame
 axis is written out, and the sorts are stable as ``jnp.argsort`` is.
+``DeviceCascade`` keeps one cascade per frame shape and takes numpy frames
+in and out, for ``detect/align.py``.
 """
 
 from __future__ import annotations
 
+import warnings
+
+import numpy as np
 import torch
 
 from ..device import resolve_device
@@ -169,3 +174,84 @@ def make_device_cascade(pnet, rnet, onet, h: int, w: int, *,
         return out_boxes, pts, counts
 
     return cascade
+
+
+class DeviceCascade:
+    """Per-shape cache of the batched device cascade; numpy in and out.
+
+    ``detect(img)`` runs it with one frame, ``detect_batch(images)`` with
+    the whole same-shape batch; each call launches kernel B5 four times
+    (the per-scale sets, the cross-scale set, stage 2 and stage 3).
+    ``config`` is :func:`make_device_cascade`'s keywords (``minsize``,
+    ``factor``, ``thresholds``, the capacities); the nets and the device
+    are the detector's.
+
+    Saturation is never silent: after every call ``last_stats`` holds the
+    drop counters summed over the frames, and a ``RuntimeWarning`` fires
+    when a fixed capacity truncated candidates the unbounded host path
+    would have kept (the JAX package's accounting, text and counts)."""
+
+    def __init__(self, detector, **config):
+        self.det = detector
+        self.config = config
+        self._cache: dict = {}
+        self.last_stats: dict | None = None
+
+    def _fn(self, h: int, w: int):
+        if (h, w) not in self._cache:
+            self._cache[(h, w)] = make_device_cascade(
+                self.det.pnet, self.det.rnet, self.det.onet, h, w,
+                device=self.det.device, **self.config)
+        return self._cache[(h, w)]
+
+    def _account(self, counts: np.ndarray) -> dict:
+        counts = np.asarray(counts).reshape(-1, 4)
+        stats = {
+            "stage1_k_dropped": int(counts[:, 0].sum()),
+            "stage2_input_dropped": int(counts[:, 1].sum()),
+            "stage3_input_dropped": int(counts[:, 2].sum()),
+            "detections": int(counts[:, 3].sum()),
+        }
+        self.last_stats = stats
+        total_dropped = (stats["stage1_k_dropped"]
+                         + stats["stage2_input_dropped"]
+                         + stats["stage3_input_dropped"])
+        if total_dropped:
+            warnings.warn(
+                f"DeviceCascade capacity saturation: {total_dropped} "
+                f"candidate(s) dropped by fixed stage caps ({stats}); "
+                "raise stage1_cap/stage2_cap/out_cap or use the unbounded "
+                "host path for this frame", RuntimeWarning, stacklevel=3)
+        return stats
+
+    def _run(self, frames: np.ndarray):
+        """``[F, H, W, 3]`` frames -> numpy boxes ``[F, cap, 5]``, points
+        ``[F, cap, 10]``, with the counts accounted."""
+        boxes, pts, counts = self._fn(*frames.shape[1:3])(
+            np.asarray(frames, np.float32))
+        self._account(counts.cpu().numpy())
+        return boxes.cpu().numpy(), pts.cpu().numpy()
+
+    def detect(self, img: np.ndarray):
+        """One frame ``[H, W, 3]`` (or grayscale ``[H, W]``) -> ``(boxes
+        [N, 5], points [10, N])``, as the host cascade returns them."""
+        img = np.asarray(img)
+        if img.ndim == 2:
+            img = np.repeat(img[..., None], 3, axis=-1)
+        boxes, pts = self._run(img[None])
+        sel = np.isfinite(boxes[0, :, 4])
+        return boxes[0][sel], pts[0][sel].T  # points as [10, N]
+
+    def detect_batch(self, images: np.ndarray):
+        """Same-shape frames ``[N, H, W, 3]`` (or grayscale ``[N, H, W]``)
+        in one batched call; returns a list of ``(boxes, points [10, k])``
+        per frame."""
+        images = np.asarray(images)
+        if images.ndim == 3:
+            images = np.repeat(images[..., None], 3, axis=-1)
+        boxes, pts = self._run(images)
+        out = []
+        for i in range(images.shape[0]):
+            sel = np.isfinite(boxes[i, :, 4])
+            out.append((boxes[i][sel], pts[i][sel].T))
+        return out

@@ -1,1 +1,2 @@
-"""Evaluation: the cosine-similarity sink and its PDF/CDF, and the plots."""
+"""Evaluation: the cosine-similarity sink and its PDF/CDF, the plots, and
+the LFW 10-fold verification protocol (``lfw``)."""

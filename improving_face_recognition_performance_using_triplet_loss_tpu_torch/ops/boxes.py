@@ -1,8 +1,10 @@
 """Box ops for the MTCNN cascade: keep-mask NMS and the PNet heatmap decode.
 
-Port of the JAX package's ``ops/boxes.py`` (the part the device cascade
-runs). Box layout: ``[x1, y1, x2, y2, score]`` rows; invalid rows carry a
-score of -inf. ``nms_mask`` / ``nms_mask_batched`` launch kernel B5
+Port of the JAX package's ``ops/boxes.py``: the device cascade's ops here,
+and the numpy box math of the host cascade re-exported from
+``ops/oracles.py`` (``bbreg``, ``rerec``, ``pad``, ``generate_bounding_box``,
+``nms``), as the JAX module re-exports its own. Box layout: ``[x1, y1, x2,
+y2, score]`` rows; invalid rows carry a score of -inf. ``nms_mask`` / ``nms_mask_batched`` launch kernel B5
 (``ops/cuda/nms.py``) for CUDA tensors and run the plain
 ``nms_mask_plain`` for CPU tensors.
 """
@@ -14,6 +16,13 @@ import torch
 
 from .cuda.nms import nms_mask_batched as _nms_batched
 from .cuda.nms import nms_mask_plain  # noqa: F401  (public re-export)
+from .oracles import (  # noqa: F401  (the host cascade's numpy box math)
+    bbreg,
+    generate_bounding_box,
+    nms,
+    pad,
+    rerec,
+)
 
 
 def nms_mask(boxes: torch.Tensor, threshold: float,

@@ -5,6 +5,8 @@ numpy alone: keys are the flax tree paths joined by ``/`` under
 ``params/`` (and ``batch_stats/``), kernels in HWIO / ``[in, out]``, float32
 C-order, and the manifest names the model, feature dim and input contract.
 An export of either package loads in the other (``serve.convert``).
+``export_mtcnn`` writes the detector's three nets as the flat npz that
+the native cascade under ``cpp/`` reads.
 """
 
 from __future__ import annotations
@@ -75,3 +77,28 @@ def load_exported_params(out_dir: str):
         flat = {k: z[k] for k in z.files}
     tree = _unflatten(flat)
     return tree.get("params", {}), tree.get("batch_stats", {}), manifest
+
+
+def export_mtcnn(path: str, pnet_params: Any, rnet_params: Any,
+                 onet_params: Any) -> str:
+    """Write the three MTCNN nets to one flat .npz the native cascade reads.
+
+    The reference's C++ runtime loads PNet/RNet/ONet as MXNet symbol+params
+    (MTCNN.hpp:60-79); this npz is consumed by
+    cpp/include/facejax/mtcnn.hpp. Keys: ``{pnet|rnet|onet}/{layer}/{param}``
+    with the det*.npy layer names (``models/mtcnn.py`` specs); float32
+    C-order. The params are det*.npy-layout dicts (``MTCNNNet.params()``).
+    """
+    flat: dict[str, np.ndarray] = {}
+    for net, params in (("pnet", pnet_params), ("rnet", rnet_params),
+                        ("onet", onet_params)):
+        for layer, entries in params.items():
+            for name, arr in entries.items():
+                flat[f"{net}/{layer}/{name}"] = np.ascontiguousarray(
+                    np.asarray(arr, np.float32))
+    if not path.endswith(".npz"):
+        path += ".npz"  # np.savez appends it anyway; return the real path
+    if os.path.dirname(path):
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+    np.savez(path, **flat)
+    return path

@@ -19,13 +19,23 @@ from improving_face_recognition_performance_using_triplet_loss_tpu_torch import 
     device as tdevice,
 )
 from improving_face_recognition_performance_using_triplet_loss_tpu_torch.cli import (
+    align,
     eval_cos,
     extract_features,
+    import_params,
+    lfw_eval,
+    lfw_run,
     serve_demo,
     train_head,
 )
 from improving_face_recognition_performance_using_triplet_loss_tpu_torch.detect import (
     MTCNNDetector,
+)
+from improving_face_recognition_performance_using_triplet_loss_tpu_torch.detect.align import (
+    align_directory,
+)
+from improving_face_recognition_performance_using_triplet_loss_tpu_torch.detect.device_cascade import (
+    DeviceCascade,
 )
 from improving_face_recognition_performance_using_triplet_loss_tpu_torch.models.efm_symbol import (
     build_efmnet342,
@@ -75,14 +85,19 @@ def test_port_imports_without_jax_or_triton():
                  "ops.mining", "train.steps", "train.loops",
                  "train.checkpoint", "cli.train_head", "cli.eval_cos",
                  "ops.cuda.front9", "models.lightcnn", "extract",
-                 "cli.extract_features", "data.records", "data.synthetic"):
+                 "cli.extract_features", "data.records", "data.synthetic",
+                 "cli.lfw_eval", "cli.lfw_run", "cli.align",
+                 "cli.import_params", "eval.lfw", "data.lfw",
+                 "utils.mxnet_import", "detect.align", "detect.pipeline"):
         assert f"{PORT}.{name}" in mods, name
     assert int(out[1]) == len(mods) >= 20
 
 
 @pytest.mark.parametrize("entry", ["resolve_device", "detector", "model",
                                    "serve_demo", "train_head", "eval_cos",
-                                   "extract_features"])
+                                   "extract_features", "lfw_eval", "lfw_run",
+                                   "align", "import_params",
+                                   "device_cascade", "align_directory"])
 def test_default_device_without_cuda_raises(monkeypatch, tmp_path, entry):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     call = {
@@ -97,7 +112,36 @@ def test_default_device_without_cuda_raises(monkeypatch, tmp_path, entry):
         "extract_features": lambda: extract_features.main([
             "--synthetic", "--model", "lightcnn9", "--out-dir",
             str(tmp_path)]),
+        "lfw_eval": lambda: lfw_eval.main([
+            "--images", str(tmp_path / "pairs.npz")]),
+        "lfw_run": lambda: lfw_run.main([
+            "--lfw", str(tmp_path), "--pairs", str(tmp_path / "pairs.txt"),
+            "--model", "lightcnn9"]),
+        "align": lambda: align.main([str(tmp_path), str(tmp_path / "out")]),
+        "import_params": lambda: import_params.main([
+            str(tmp_path / "x.params"), "--out-dir", str(tmp_path / "o"),
+            "--verify"]),
+        "device_cascade": lambda: DeviceCascade(MTCNNDetector()),
+        "align_directory": lambda: align_directory(
+            str(tmp_path), str(tmp_path / "out")),
     }[entry]
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         call()
     assert tdevice.resolve_device("cpu").type == "cpu"
+
+
+@pytest.mark.parametrize("script", ["chip_smoke.py",
+                                    "tools/thesis_rehearsal_torch.py"])
+def test_port_scripts_load_without_jax(script):
+    """The port's GPU smoke test and its thesis rehearsal load (their
+    module bodies run) with JAX and the JAX package refused."""
+    code = _SCRIPT.split("pkg = importlib.import_module")[0] + (
+        "import runpy\n"
+        f"runpy.run_path({script!r}, run_name='loaded')\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in BLOCKED)\n"
+        "assert not bad, bad\n"
+        "print('LOADED')\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert r.stdout.split() == ["LOADED"]

@@ -7,6 +7,9 @@ on the CPU, each ``main`` runs at a toy size with the flag set True first,
 and must leave it False.
 """
 
+import os
+
+import numpy as np
 import pytest
 import torch
 
@@ -14,15 +17,53 @@ from improving_face_recognition_performance_using_triplet_loss_tpu_torch import 
     device as tdevice,
 )
 from improving_face_recognition_performance_using_triplet_loss_tpu_torch.cli import (
+    align,
     eval_cos,
     extract_features,
+    import_params,
+    lfw_eval,
+    lfw_run,
     serve_demo,
     train_head,
 )
+from improving_face_recognition_performance_using_triplet_loss_tpu_torch.models import (
+    build_efmnet342,
+)
+from improving_face_recognition_performance_using_triplet_loss_tpu_torch.utils.mxnet_import import (
+    efm_params_to_mxnet,
+    write_mxnet_params,
+)
 
 
-def _runs(tmp_path):
+def _lfw_inputs(tmp_path):
+    """A four-image LFW tree with two pairs, its pairs.txt, the same
+    images as a pair store, and an EFM ``.params`` checkpoint at 32 px
+    (cv2 writes the tree: only the LFW entries need it)."""
+    import cv2
+
+    imgs = (np.random.default_rng(0).random((4, 32, 32, 1)) * 255).astype(
+        np.uint8)
+    for i, name in enumerate(("Ann_A", "Ann_A", "Bob_B", "Bob_B")):
+        (tmp_path / "lfw" / name).mkdir(parents=True, exist_ok=True)
+        cv2.imwrite(str(tmp_path / "lfw" / name
+                        / f"{name}_{i % 2 + 1:04d}.jpg"), imgs[i])
+    (tmp_path / "pairs.txt").write_text(
+        "1\t2\nAnn_A\t1\t2\nAnn_A\t1\tBob_B\t2\n")
+    np.savez(tmp_path / "pairs.npz", images=imgs,
+             issame=np.asarray([True, False]))
+    model = build_efmnet342(3, image_size=32, device="cpu")
+    write_mxnet_params(str(tmp_path / "m.params"),
+                       efm_params_to_mxnet(model.flax_params()))
+
+
+# the entries that read the LFW inputs
+LFW_ENTRIES = ("lfw_eval", "lfw_run", "align", "import_params")
+
+
+def _runs(tmp_path, entry):
     out = str(tmp_path)
+    if entry in LFW_ENTRIES:
+        _lfw_inputs(tmp_path)
     return {
         "serve_demo": lambda: serve_demo.main([
             "--streams", "1", "--frames", "1", "--frame-size", "48", "48",
@@ -37,18 +78,31 @@ def _runs(tmp_path):
         "eval_cos": lambda: eval_cos.main([
             "--synthetic", "--batch-size", "1024", "--device", "cpu",
             "--out-dir", out]),
+        "lfw_eval": lambda: lfw_eval.main([
+            "--images", os.path.join(out, "pairs.npz"), "--model",
+            "lightcnn9", "--folds", "2", "--device", "cpu"]),
+        "lfw_run": lambda: lfw_run.main([
+            "--lfw", os.path.join(out, "lfw"), "--pairs",
+            os.path.join(out, "pairs.txt"), "--model", "lightcnn9",
+            "--folds", "2", "--device", "cpu"]),
+        "align": lambda: align.main([
+            os.path.join(out, "lfw"), os.path.join(out, "aligned"),
+            "--device", "cpu"]),
+        "import_params": lambda: import_params.main([
+            os.path.join(out, "m.params"), "--out-dir",
+            os.path.join(out, "imported"), "--verify", "--device", "cpu"]),
     }
 
 
 @pytest.mark.parametrize("entry", ["serve_demo", "extract_features",
-                                   "train_head", "eval_cos"])
+                                   "train_head", "eval_cos", *LFW_ENTRIES])
 def test_cli_turns_tf32_off(entry, tmp_path):
     saved = (torch.backends.cudnn.allow_tf32,
              torch.backends.cuda.matmul.allow_tf32)
     try:
         torch.backends.cudnn.allow_tf32 = True
         torch.backends.cuda.matmul.allow_tf32 = True
-        _runs(tmp_path)[entry]()
+        _runs(tmp_path, entry)[entry]()
         assert torch.backends.cudnn.allow_tf32 is False
         assert torch.backends.cuda.matmul.allow_tf32 is False
     finally:
