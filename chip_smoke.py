@@ -41,6 +41,19 @@ before it and read just after:
   plain route on the card and to an f32 CPU rerun; ``DeviceCascade`` over
   512 frames of 250x250 (B5), its first call rerun on the CPU; and, with
   cv2, ``align`` and ``lfw_run --align`` with ``--device-cascade``.
+- live serving (``live``): a person DB of 100,000 faces of 10,000
+  persons (342-d, seeded) through the port's ``PersonStore``; ``serve_demo
+  --video --detect --max-faces 4 --dynamic-gallery --person-db
+  --gallery-dtype int8 --register-frames 0`` over a cv2-written 64-frame
+  240x320 file (B5 4, B3 1 and B2 29 times a frame; every kernel call of
+  the first and last frame held to its plain version); the first frames
+  through the pipeline on the card and the CPU (f32 and int8 galleries);
+  frames/s, device ms by family and the idle share of the per-frame work;
+  ``identify match-person`` with 1,024 probes by the host scan, ``--tpu``
+  and ``--device-gallery`` in f32, bf16 and int8 (int8 bit-equal to a
+  host recomputation); ``DeviceGallery`` at 131,072 x 342 in each dtype
+  (in-place rows, a doubling, host us per add); and the single-camera and
+  ``--video`` modes through ``RecognitionService``.
 
 The efm3 phase also holds the backward kernel ``efm3_bwd`` bit for bit to
 the plain version's autograd (every shape of a LightCNN29 training step,
@@ -104,7 +117,8 @@ PATH_KERNELS = {"slice": ("nms", "stem", "efm3"), "head": ("mining",),
                 "serve9": ("nms", "front9"),
                 "backbone": ("mining", "efm3", "efm3_bwd", "stem",
                              "front9", "stem2"),
-                "lfw": ("nms", "stem_bf16", "efm3", "front9_bf16")}
+                "lfw": ("nms", "stem_bf16", "efm3", "front9_bf16"),
+                "live": ("nms", "stem", "efm3")}
 
 
 def slice_argv(frames: int, device: str) -> list[str]:
@@ -1918,18 +1932,21 @@ class PathCalls:
     batch, which starts the batch, and B2 through ``ops.mfm``) go through
     the kernels as on the path, and those of the batches in ``keep`` are
     kept (a copy of each input and output) to be held to the plain
-    versions afterwards (:func:`hold_path_calls`). With ``plain=True``
-    the same calls go through the plain versions instead: no kernel is
-    launched."""
+    versions afterwards (:func:`hold_path_calls`); ``keep=None`` keeps
+    every batch. With ``plain=True`` the same calls go through the plain
+    versions instead: no kernel is launched. With ``nms=True`` B5's calls
+    (through ``ops.boxes``) are kept too, and a batch is a serving frame:
+    its stage-1 per-scale NMS call (threshold 0.5) starts it."""
 
-    def __init__(self, keep=(), plain=False):
-        self.keep, self.plain = set(keep), plain
+    def __init__(self, keep=(), plain=False, nms=False):
+        self.keep = None if keep is None else set(keep)
+        self.plain, self.nms = plain, nms
         self.batch, self.calls = -1, []
 
     def _call(self, kind, fn, args, kwargs, starts_batch):
         self.batch += starts_batch
         out = fn(*args, **kwargs)
-        if self.batch in self.keep:
+        if self.keep is None or self.batch in self.keep:
             self.calls.append((kind, self.batch, tuple(
                 a.clone() if i == 0 else a for i, a in enumerate(args)),
                 kwargs, out.clone()))
@@ -1940,31 +1957,38 @@ class PathCalls:
             lightcnn,
         )
         from improving_face_recognition_performance_using_triplet_loss_tpu_torch.ops import (
+            boxes,
             mfm,
         )
         from improving_face_recognition_performance_using_triplet_loss_tpu_torch.ops.cuda import (
             efm3,
             front9,
+            nms,
             stem,
         )
 
-        self._mods = lightcnn, mfm
+        self._mods = lightcnn, mfm, boxes
         self._saved = (lightcnn.stem_conv_maxout_pool, lightcnn.front9_chain,
-                       mfm.efm3_rows)
+                       mfm.efm3_rows, boxes._nms_batched)
         fns = ((stem.stem_conv_maxout_pool_plain,
                 lambda x, params, packed=None: front9.front9_plain(x, params),
-                efm3.efm3_rows_plain) if self.plain else self._saved)
+                efm3.efm3_rows_plain, nms.nms_mask_plain) if self.plain
+               else self._saved)
+        net_starts = 0 if self.nms else 1
         lightcnn.stem_conv_maxout_pool = lambda *a, **k: self._call(
-            "stem", fns[0], a, k, 1)
+            "stem", fns[0], a, k, net_starts)
         lightcnn.front9_chain = lambda x, params, packed=None: self._call(
-            "front9", fns[1], (x, params), {"packed": packed}, 1)
+            "front9", fns[1], (x, params), {"packed": packed}, net_starts)
         mfm.efm3_rows = lambda x: self._call("efm3", fns[2], (x,), {}, 0)
+        if self.nms:
+            boxes._nms_batched = lambda b, th, method="Union": self._call(
+                "nms", fns[3], (b, th, method), {}, int(th == 0.5))
         return self
 
     def __exit__(self, *exc):
-        lightcnn, mfm = self._mods
+        lightcnn, mfm, boxes = self._mods
         (lightcnn.stem_conv_maxout_pool, lightcnn.front9_chain,
-         mfm.efm3_rows) = self._saved
+         mfm.efm3_rows, boxes._nms_batched) = self._saved
         return False
 
 
@@ -1973,15 +1997,21 @@ def _plain_call(efm3, front9, stem, kind, args, kwargs):
         return efm3.efm3_rows_plain(*args)
     if kind == "stem":
         return stem.stem_conv_maxout_pool_plain(*args, **kwargs)
+    if kind == "nms":
+        from improving_face_recognition_performance_using_triplet_loss_tpu_torch.ops.cuda import (
+            nms,
+        )
+
+        return nms.nms_mask_plain(*args)
     return front9.front9_plain(*args)
 
 
 def hold_path_calls(torch, calls) -> dict:
     """Each kept kernel call against its plain version on the same input
-    (the path's own inputs and shapes): B2 bit for bit, B3 within 1e-2 and
-    B6 within 2e-2 (the stem and front9 phases' bf16 tolerances), with the
-    bf16 ulps by which the roundings differ. Per counter name: calls,
-    input shapes, worst error, ok."""
+    (the path's own inputs and shapes): B2 and B5 bit for bit, B3 within
+    1e-2 and B6 within 2e-2 (the stem and front9 phases' bf16
+    tolerances), with the bf16 ulps by which the roundings differ. Per
+    counter name: calls, input shapes, worst error, ok."""
     from improving_face_recognition_performance_using_triplet_loss_tpu_torch.ops.cuda import (
         efm3,
         front9,
@@ -1994,8 +2024,8 @@ def hold_path_calls(torch, calls) -> dict:
         with torch.no_grad():
             want = _plain_call(efm3, front9, stem, kind, args, kwargs)
         tol, name = {"efm3": (0.0, "efm3"), "stem": (1e-2, "stem"),
-                     "front9": (2e-2, "front9")}[kind]
-        if x.dtype == torch.bfloat16 and kind != "efm3":
+                     "front9": (2e-2, "front9"), "nms": (0.0, "nms")}[kind]
+        if x.dtype == torch.bfloat16 and kind not in ("efm3", "nms"):
             name += "_bf16"
         got_f, want_f = got.float(), want.float()
         err = float((got_f - want_f).abs().max())
@@ -2384,11 +2414,504 @@ def phase_lfw(ctx):
                          "counts and last_stats equal"}
 
 
+# ------------------------------------------------------------ live serving
+
+# the live cell: one camera, 240x320 frames (the slice's), EFMNet342 on
+# 64x64 crops, the top 4 faces a frame, against a person DB of 100,000
+# faces of 10,000 persons (the ~100k-face scale at which the JAX package
+# moves the match to the device) stored as int8 rows
+LIVE_FRAMES, LIVE_MAX_FACES, LIVE_CHECK_FRAMES = 64, 4, 4
+LIVE_PERSONS, LIVE_FACES_PER = 10000, 10
+LIVE_PROBES, LIVE_ENROLLED_SHARE = 1024, 0.9
+LIVE_DG_CAPACITY, LIVE_ADDS = 131072, 1000
+LIVE_TRACED = 16
+# one quantization step of one int8 probe element moves an int8
+# similarity by at most 127 / 127^2
+LIVE_INT8_SIM_ATOL = 1.0 / 127.0
+LIVE_F32_SIM_ATOL = 1e-4
+LIVE_FAMILIES = (("nms", "nms_"), ("stem", "stem_kernel"),
+                 ("efm3", "efm3_kernel"), ("conv", "conv"),
+                 ("conv", "cudnn"), ("conv", "implicit"),
+                 ("conv", "winograd"), ("int8_gemm", "imma"),
+                 ("int8_gemm", "i8"), ("gemm", "gemm"),
+                 ("gemm", "sm90_xmma"), ("gemm", "cutlass"),
+                 ("sort", "sort"), ("sort", "radix"), ("pool", "pool"),
+                 ("reduce", "reduce"), ("copy", "memcpy"))
+
+
+def live_argv(video: str, db: str, store: str, device: str) -> list[str]:
+    """``serve_demo --video --detect`` against the person DB, identify
+    only, as fast as the frames decode."""
+    return ["--video", video, "--detect", "--frame-size", str(FRAME_HW[0]),
+            str(FRAME_HW[1]), "--image-size", str(IMAGE), "--max-faces",
+            str(LIVE_MAX_FACES), "--dynamic-gallery", "--person-db", db,
+            "--gallery-dtype", "int8", "--register-frames", "0",
+            "--fps-cap", "0", "--sim-threshold", "-1",
+            "--det-thresholds", "0.3", "0.3", "0.3", "--store", store,
+            "--device", device]
+
+
+def live_db(path: str, seed: int = 0):
+    """The person DB through the port's ``PersonStore``: 10,000 persons
+    with 10 face rows each (342-d, seeded); returns the rows."""
+    import numpy as np
+
+    from improving_face_recognition_performance_using_triplet_loss_tpu_torch.serve.person_store import (
+        Person,
+        PersonStore,
+    )
+
+    rng = np.random.default_rng(seed)
+    feats = rng.normal(size=(LIVE_PERSONS * LIVE_FACES_PER,
+                             FEAT_DIM)).astype(np.float32)
+    with PersonStore(path, FEAT_DIM) as store:
+        store.db.execute("PRAGMA synchronous=OFF")
+        for i in range(LIVE_PERSONS):
+            store.register_person(
+                Person(name=f"person_{i}", student_id=str(i)),
+                feats[i * LIVE_FACES_PER:(i + 1) * LIVE_FACES_PER])
+    return feats
+
+
+def live_video(path: str, seed: int = 0):
+    """A 64-frame MJPG file of seeded 240x320 noise (as the slice's frames:
+    thresholds of 0.3 saturate every cascade stage of random nets),
+    written with cv2, and the frames as the CLI decodes them
+    (``VideoProducer``'s normalization to [0, 1], times 255)."""
+    import numpy as np
+
+    from improving_face_recognition_performance_using_triplet_loss_tpu_torch.serve.video import (
+        VideoProducer,
+        write_test_video,
+    )
+
+    rng = np.random.default_rng(seed)
+    write_test_video(path, rng.integers(0, 256, (LIVE_FRAMES, *FRAME_HW, 3),
+                                        dtype=np.uint8))
+
+    class Sink:
+        frame_shape = (*FRAME_HW, 3)
+
+        def __init__(self):
+            self.frames = []
+
+        def push_frame(self, frame, seq=0):
+            self.frames.append(frame * 255.0)
+
+    sink = Sink()
+    VideoProducer(path, sink)._run()
+    return sink.frames
+
+
+def _live_pipeline(torch, args, store, dtype, device):
+    """The CLI's own pipeline, detector, net and gallery service for
+    ``args`` on ``device``: the same seeded weights on every device."""
+    from improving_face_recognition_performance_using_triplet_loss_tpu_torch.cli import (
+        serve_demo,
+    )
+    from improving_face_recognition_performance_using_triplet_loss_tpu_torch.serve.gallery_service import (
+        PersonGalleryService,
+    )
+    from improving_face_recognition_performance_using_triplet_loss_tpu_torch.serve.pipeline import (
+        make_multiface_pipeline,
+    )
+
+    model = serve_demo._embed_model(args, device)
+    pipe = make_multiface_pipeline(
+        serve_demo._detector(args, device), model, dynamic_gallery=True,
+        frame_h=FRAME_HW[0], frame_w=FRAME_HW[1], embed_size=IMAGE,
+        thresholds=tuple(args.det_thresholds),
+        sim_threshold=args.sim_threshold, max_faces=LIVE_MAX_FACES,
+        device=device)
+    return pipe, PersonGalleryService(store, dtype=dtype, device=device)
+
+
+def live_family(name: str) -> str:
+    low = name.lower()
+    for fam, key in LIVE_FAMILIES:
+        if key in low:
+            return fam
+    return "elementwise/other"
+
+
+def live_cli(ctx, torch, video, db, tmp) -> dict:
+    """``serve_demo --video --detect`` on the card with the launch counts
+    set to 0 just before and read just after, every kernel call kept;
+    those of the first and last identified frame are held to the plain
+    versions. Frame 0 is the CLI's warm-up frame."""
+    from improving_face_recognition_performance_using_triplet_loss_tpu_torch.cli import (
+        serve_demo,
+    )
+
+    for c in ctx["counters"].values():
+        c.reset()
+    t0 = time.perf_counter()
+    with PathCalls(keep=None, nms=True) as rec:
+        results = serve_demo.main(live_argv(video, db, os.path.join(
+            tmp, "live.fjdb"), "cuda"))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    cli_tf32_off = tf32_off()
+    launches = read_launches(ctx, "live")
+    frames = rec.batch + 1                # the warm-up and each identified
+    keep = {1, rec.batch}
+    held = hold_path_calls(torch, [c for c in rec.calls if c[1] in keep])
+    per_frame = {k: v / frames for k, v in launches.items()}
+    checks = {
+        "identified": len(results) >= 1 and frames == len(results) + 1,
+        "launches_per_frame": per_frame == {"nms": 4.0, "stem": 1.0,
+                                            "efm3": 29.0},
+        "path_calls_held": all(r["ok"] for r in held.values())
+        and set(held) == {"nms", "stem", "efm3"},
+        "cli_turned_tf32_off": cli_tf32_off,
+        "names_resolved": all(n is not None for _, n, _ in results),
+    }
+    return {"checks": checks, "cli_wall_s": wall, "frames": frames,
+            "identified_seqs": [r[0] for r in results],
+            "launches": launches, "launches_per_frame": per_frame,
+            "path_calls": held}
+
+
+def live_parity(torch, args, frames, db) -> dict:
+    """The first frames through the CLI's pipeline on the card and on the
+    CPU, with the DB's gallery in f32 and in int8: found and indices
+    equal, boxes within 1e-3, similarities within LIVE_F32_SIM_ATOL (f32)
+    or LIVE_INT8_SIM_ATOL (int8: one step of one probe element)."""
+    import numpy as np
+
+    from improving_face_recognition_performance_using_triplet_loss_tpu_torch.cli import (
+        serve_demo,
+    )
+    from improving_face_recognition_performance_using_triplet_loss_tpu_torch.serve.person_store import (
+        PersonStore,
+    )
+
+    checks, report = {}, {}
+    with PersonStore(db, FEAT_DIM) as store:
+        for name, dtype, atol in (("f32", torch.float32, LIVE_F32_SIM_ATOL),
+                                  ("int8", torch.int8, LIVE_INT8_SIM_ATOL)):
+            outs = {}
+            for dev in ("cuda", "cpu"):
+                pipe, svc = _live_pipeline(torch, args, store, dtype, dev)
+                outs[dev] = [serve_demo.run_frame(pipe, f, svc, dev)
+                             for f in frames[:LIVE_CHECK_FRAMES]]
+                del pipe, svc
+            found = sum(int(o["found"].sum()) for o in outs["cpu"])
+            box_err = sim_err = 0.0
+            same = True
+            for card, cpu in zip(outs["cuda"], outs["cpu"]):
+                same &= bool(np.array_equal(card["found"], cpu["found"])
+                             and np.array_equal(card["indices"],
+                                                cpu["indices"]))
+                f = cpu["found"]
+                if f.any():
+                    box_err = max(box_err, float(np.abs(
+                        card["boxes"][f] - cpu["boxes"][f]).max()))
+                    sim_err = max(sim_err, float(np.abs(
+                        card["similarities"][f]
+                        - cpu["similarities"][f]).max()))
+            checks[f"{name}:found_indices_equal"] = same and found > 0
+            checks[f"{name}:boxes_1e-3"] = box_err <= 1e-3
+            checks[f"{name}:sims"] = sim_err <= atol
+            report[name] = {"faces": found, "box_max_err": box_err,
+                            "sim_max_err": sim_err, "sim_atol": atol}
+    return {"checks": checks, **report}
+
+
+def live_timing(torch, args, frames, db) -> dict:
+    """frames/s of the CLI's per-frame work (one dispatch a frame, every
+    output read back) over the 64 decoded frames, three unprofiled passes,
+    then one
+    traced pass over LIVE_TRACED frames: device ms a frame by family, the
+    idle share against the unprofiled wall, and the CUDA runtime's
+    synchronizing calls a frame."""
+    from collections import defaultdict
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from improving_face_recognition_performance_using_triplet_loss_tpu_torch.cli import (
+        serve_demo,
+    )
+    from improving_face_recognition_performance_using_triplet_loss_tpu_torch.serve.person_store import (
+        PersonStore,
+    )
+
+    with PersonStore(db, FEAT_DIM) as store:
+        pipe, svc = _live_pipeline(torch, args, store, torch.int8,
+                                   "cuda")
+        for f in frames[:3]:
+            serve_demo.run_frame(pipe, f, svc, "cuda")
+        torch.cuda.synchronize()
+        walls = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            for f in frames:
+                out = serve_demo.run_frame(pipe, f, svc, "cuda")
+            walls.append((time.perf_counter() - t0) / len(frames) * 1e3)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for f in frames[:LIVE_TRACED]:
+                serve_demo.run_frame(pipe, f, svc, "cuda")
+            torch.cuda.synchronize()
+    by_fam, by_name, launches = defaultdict(float), defaultdict(float), 0
+    runtime = defaultdict(int)
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            ms = ev.time_range.elapsed_us() / 1e3 / LIVE_TRACED
+            by_fam[live_family(ev.name)] += ms
+            by_name[ev.name[:80]] += ms
+            launches += 1
+        elif ev.name.startswith("cuda") and ("Synchronize" in ev.name
+                                             or "Memcpy" in ev.name):
+            runtime[ev.name] += 1
+    device_ms = sum(by_fam.values())
+    wall_ms = min(walls)
+    return {"ms_per_frame": walls, "frames_per_s": [1e3 / w for w in walls],
+            "device_ms_per_frame": device_ms,
+            "device_idle_share": max(0.0, 1.0 - device_ms / wall_ms),
+            "kernel_launches_per_frame": launches / LIVE_TRACED,
+            "by_family_ms": dict(sorted(by_fam.items(),
+                                        key=lambda kv: -kv[1])),
+            "top_kernels_ms": dict(sorted(by_name.items(),
+                                          key=lambda kv: -kv[1])[:12]),
+            "outputs_read_per_frame": len(out),
+            "runtime_calls_per_frame": {k: v / LIVE_TRACED
+                                        for k, v in runtime.items()}}
+
+
+def live_identify(torch, feats, db, tmp, seed: int = 0) -> dict:
+    """``identify match-person`` over the DB with 1,024 probes (90% near a
+    DB row, 10% of no enrolled person), five routes: the host scan,
+    ``--tpu`` and ``--device-gallery`` in f32, bf16 and int8. f32 and
+    ``--tpu`` must give the host scan's persons except where the host's
+    top two similarities lie within 1e-6; the int8 route's similarities
+    must equal the quantized product recomputed on the host (float64 sums
+    of int8 products are exact integers below 2^53), bit for bit."""
+    import numpy as np
+
+    from improving_face_recognition_performance_using_triplet_loss_tpu_torch.cli import (
+        identify,
+    )
+    from improving_face_recognition_performance_using_triplet_loss_tpu_torch.data import (
+        save_feature_store,
+    )
+    from improving_face_recognition_performance_using_triplet_loss_tpu_torch.ops.distances import (
+        l2_normalize_np,
+        narrow_gallery_np,
+    )
+    from improving_face_recognition_performance_using_triplet_loss_tpu_torch.serve.gallery_service import (
+        PersonGalleryService,
+    )
+    from improving_face_recognition_performance_using_triplet_loss_tpu_torch.serve.person_store import (
+        PersonStore,
+    )
+
+    rng = np.random.default_rng(seed + 7)
+    n_near = int(LIVE_PROBES * LIVE_ENROLLED_SHARE)
+    src = rng.choice(feats.shape[0], n_near, replace=False)
+    probes = np.concatenate([
+        feats[src] + rng.normal(size=(n_near, FEAT_DIM)).astype(np.float32),
+        rng.normal(size=(LIVE_PROBES - n_near, FEAT_DIM)).astype(
+            np.float32)])
+    labels = np.concatenate([src // LIVE_FACES_PER,
+                             np.full(LIVE_PROBES - n_near, -1)])
+    npz = os.path.join(tmp, "probes.npz")
+    save_feature_store(npz, probes, labels)
+    routes = {"host": [], "tpu": ["--tpu"],
+              "f32": ["--device-gallery"],
+              "bf16": ["--device-gallery", "--gallery-dtype", "bf16"],
+              "int8": ["--device-gallery", "--gallery-dtype", "int8"]}
+    pids, ms = {}, {}
+    int8_rows = None
+    for name, extra in routes.items():
+        t0 = time.perf_counter()
+        out = identify.main(["match-person", "--store", db, "--features",
+                             npz, "--sim-th", "-2", *extra, "--device",
+                             "cuda"])
+        torch.cuda.synchronize()
+        ms[name] = (time.perf_counter() - t0) * 1e3
+        pids[name] = np.asarray([r["pid"] for r in out])
+        if name == "int8":
+            int8_rows = out
+    # the host's own similarities: top-two gaps, near-ties excluded
+    gal = l2_normalize_np(feats)
+    sims = l2_normalize_np(probes) @ gal.T
+    top2 = -np.partition(-sims, 1, axis=1)[:, :2]
+    tie = (top2[:, 0] - top2[:, 1]) <= 1e-6
+    checks = {f"{r}:persons_equal_host": bool(
+        np.array_equal(pids[r][~tie], pids["host"][~tie]))
+        for r in ("tpu", "f32")}
+    # int8: the card's similarities against the host recomputation
+    q = narrow_gallery_np(l2_normalize_np(probes), torch.int8).numpy()
+    g = narrow_gallery_np(gal, torch.int8).numpy()
+    prod = (q.astype(np.float64) @ g.astype(np.float64).T).astype(np.int64)
+    best = np.argmax(prod, axis=1)
+    want = (prod[np.arange(LIVE_PROBES), best].astype(np.float32)
+            * np.float32(1.0 / (127.0 * 127.0)))
+    with PersonStore(db, FEAT_DIM) as store:
+        res = PersonGalleryService(store, dtype=torch.int8,
+                                   device="cuda").match_batch(probes,
+                                                              sim_th=-2.0)
+        _, fids, _ = store.valid_faces()
+    got = np.asarray([r.similarity for r in res], np.float32)
+    checks["int8:sims_bit_equal_host"] = bool(np.array_equal(got, want))
+    checks["int8:rows_equal_host"] = bool(np.array_equal(
+        [r.fid for r in res], fids[best]))
+    checks["int8:cli_jsonl_equal"] = [r["similarity"] for r in int8_rows] \
+        == [round(float(w), 6) for w in want]
+    agree = {r: float(np.mean(pids[r] == pids["f32"]))
+             for r in ("bf16", "int8", "tpu", "host")}
+    near = labels >= 0
+    return {"checks": checks, "route_ms": ms, "top1_agreement_with_f32": agree,
+            "near_ties": int(tie.sum()),
+            "f32_identified_source": float(np.mean(
+                pids["f32"][near] - 1 == labels[near]))}
+
+
+def live_device_gallery(torch, feats) -> dict:
+    """``DeviceGallery`` at 131,072 x 342 in each dtype: 100,000 rows at
+    start, 1,000 adds timed (host us each), a set_row and a clear_row, the
+    buffer unmoved; the stored rows equal the host normalization exactly;
+    filled to capacity, one more add doubles it and moves the buffer."""
+    import numpy as np
+
+    from improving_face_recognition_performance_using_triplet_loss_tpu_torch.ops.distances import (
+        l2_normalize_np,
+        narrow_gallery_np,
+    )
+    from improving_face_recognition_performance_using_triplet_loss_tpu_torch.serve.device_gallery import (
+        DeviceGallery,
+    )
+
+    rng = np.random.default_rng(3)
+    extra = rng.normal(size=(LIVE_DG_CAPACITY + 1 - feats.shape[0],
+                             FEAT_DIM)).astype(np.float32)
+    rows = np.concatenate([feats, extra])
+    checks, report = {}, {}
+    for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16),
+                        ("int8", torch.int8)):
+        dg = DeviceGallery(FEAT_DIM, capacity=LIVE_DG_CAPACITY,
+                           initial=feats, dtype=dtype, device="cuda")
+        ptr = dg.gallery_n.data_ptr()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for v in extra[:LIVE_ADDS]:
+            dg.add(v)
+        add_us = (time.perf_counter() - t0) / LIVE_ADDS * 1e6
+        torch.cuda.synchronize()
+        dg.set_row(5, extra[-1])
+        dg.clear_row(7)
+        in_place = dg.gallery_n.data_ptr() == ptr
+        want_rows = rows[:dg.rows].copy()
+        want_rows[5] = extra[-1]
+        want = narrow_gallery_np(l2_normalize_np(want_rows), dtype)
+        want[7] = 0
+        got = dg.gallery_n[:dg.rows].cpu()
+        equal = bool(torch.equal(got, want))
+        for v in extra[LIVE_ADDS:-1]:
+            dg.add(v)
+        full = dg.rows == dg.capacity == LIVE_DG_CAPACITY
+        before = dg.gallery_n[:16].clone()
+        dg.add(extra[-1])
+        moved = (dg.gallery_n.data_ptr() != ptr
+                 and dg.capacity == 2 * LIVE_DG_CAPACITY
+                 and bool(torch.equal(dg.gallery_n[:16], before)))
+        checks.update({f"{name}:in_place": in_place,
+                       f"{name}:rows_equal_host": equal,
+                       f"{name}:doubling_moves": full and moved})
+        report[name] = {"add_host_us": add_us,
+                        "bytes": dg.gallery_n.numel()
+                        * dg.gallery_n.element_size()}
+        del dg, before, got
+        torch.cuda.empty_cache()
+    return {"checks": checks, **report}
+
+
+def live_recognition_modes(tmp) -> dict:
+    """The default single-camera mode and ``--video`` through
+    ``RecognitionService`` with the net on the card: synthetic identities
+    identified."""
+    from improving_face_recognition_performance_using_triplet_loss_tpu_torch.cli import (
+        serve_demo,
+    )
+    from improving_face_recognition_performance_using_triplet_loss_tpu_torch.data.synthetic import (
+        synthetic_faces,
+    )
+    from improving_face_recognition_performance_using_triplet_loss_tpu_torch.serve.video import (
+        write_test_video,
+    )
+
+    correct, seen = serve_demo.main([
+        "--image-size", str(IMAGE), "--identities", "4", "--frames", "24",
+        "--store", os.path.join(tmp, "cam.fjdb"), "--device", "cuda"])
+    imgs, _ = synthetic_faces(num_ids=1, per_id=32, size=IMAGE, seed=3)
+    video = os.path.join(tmp, "person.avi")
+    write_test_video(video, imgs[..., 0])
+    results = serve_demo.main([
+        "--video", video, "--image-size", str(IMAGE), "--register-name",
+        "alice", "--register-frames", "3", "--sim-threshold", "0.3",
+        "--fps-cap", "25", "--store", os.path.join(tmp, "vid.fjdb"),
+        "--device", "cuda"])
+    alice = sum(n == "alice" for _, n, _ in results)
+    return {"checks": {"camera:all_identified": seen >= 1 and correct == seen,
+                       "video:identified": bool(results)
+                       and alice >= 0.6 * len(results)},
+            "camera": [correct, seen], "video": [alice, len(results)]}
+
+
+def phase_live(ctx):
+    """Live recognition on the card (module docstring): the person DB,
+    ``serve_demo --video --detect`` against it (B5, B3, B2 a frame, their
+    calls of the first and last frame held to the plain versions), the
+    same frames through the pipeline on the card and the CPU, the frames/s
+    and device profile of the per-frame work, ``identify match-person``
+    five ways, ``DeviceGallery`` at 131,072 rows, and the
+    ``RecognitionService`` modes."""
+    import torch
+
+    from improving_face_recognition_performance_using_triplet_loss_tpu_torch.cli import (
+        serve_demo,
+    )
+
+    report, checks, secs = {}, {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        db = os.path.join(tmp, "people.sqlite")
+        video = os.path.join(tmp, "scene.avi")
+        t0 = time.perf_counter()
+        feats = live_db(db)
+        frames = live_video(video)
+        args = serve_demo.parse_args(live_argv(video, db, "", "cuda"))
+        secs["setup"] = time.perf_counter() - t0
+        for name, fn in (
+                ("cli", lambda: live_cli(ctx, torch, video, db, tmp)),
+                ("parity", lambda: live_parity(torch, args, frames, db)),
+                ("timing", lambda: live_timing(torch, args, frames, db)),
+                ("identify", lambda: live_identify(torch, feats, db, tmp)),
+                ("device_gallery", lambda: live_device_gallery(torch,
+                                                               feats)),
+                ("recognition", lambda: live_recognition_modes(tmp))):
+            t0 = time.perf_counter()
+            r = fn()
+            secs[name] = time.perf_counter() - t0
+            checks.update({f"{name}:{k}": v
+                           for k, v in r.pop("checks", {}).items()})
+            report[name] = r
+    emit({"live_frames_per_s": report["timing"]["frames_per_s"],
+          "live_device_ms_per_frame": report["timing"]["device_ms_per_frame"],
+          "live_idle_share": report["timing"]["device_idle_share"],
+          "identify_route_ms": report["identify"]["route_ms"],
+          "device_gallery_add_us": {k: report["device_gallery"][k]
+                                    ["add_host_us"]
+                                    for k in ("f32", "bf16", "int8")}})
+    return {"ok": all(checks.values()), "checks": checks, "seconds_by_part":
+            secs, **report}
+
+
 PHASES = {"build": phase_build, "nms": phase_nms, "stem": phase_stem,
           "efm3": phase_efm3, "mining": phase_mining, "front9": phase_front9,
           "stem2": phase_stem2, "slice": phase_slice, "head": phase_head,
           "extract": phase_extract, "serve9": phase_serve9,
-          "backbone": phase_backbone, "lfw": phase_lfw}
+          "backbone": phase_backbone, "lfw": phase_lfw, "live": phase_live}
 
 
 def pytorch_defaults(torch) -> None:

@@ -1,8 +1,8 @@
 """Shared CLI plumbing: logging to timestamped file + stdout (the reference's
 per-run logging setup, train_efm.py:171-175), typed config echo.
 
-A copy of ``setup_logging`` and ``log_config`` from the JAX package's
-``cli/_common.py`` (its ``gallery_dtype`` imports JAX and is not copied)."""
+A copy of the JAX package's ``cli/_common.py``; ``gallery_dtype`` names
+torch dtypes."""
 
 from __future__ import annotations
 
@@ -66,3 +66,18 @@ def _revision_info() -> str:
         return rev
     except Exception:
         return ""
+
+
+# gallery storage dtypes accepted by the serving CLIs (identify
+# --device-gallery, serve_demo --dynamic-gallery); the single source for
+# argparse choices= so a new dtype lands everywhere at once
+GALLERY_DTYPE_NAMES = ("f32", "bf16", "int8")
+
+
+def gallery_dtype(name: str):
+    """CLI dtype name -> torch dtype (torch imported lazily so --help stays
+    cheap)."""
+    import torch
+
+    return {"f32": torch.float32, "bf16": torch.bfloat16,
+            "int8": torch.int8}[name]

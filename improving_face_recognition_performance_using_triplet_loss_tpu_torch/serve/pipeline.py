@@ -18,8 +18,16 @@ import torch
 
 from ..detect.device_cascade import crop_resize_boxes, make_device_cascade
 from ..device import resolve_device
+from ..ops.boxes import stable_topk
 from ..ops.distances import (gallery_sims, l2_normalize, l2_normalize_np,
                              narrow_gallery_np)
+
+_SHARDED = ("the mesh-sharded pipelines are not ported; queued in "
+            "ROADMAP.md queue A, item 10")
+_INT8_EMBED = ("the int8 embedding (ops/quantized.py) is not ported; queued "
+               "in ROADMAP.md queue A, item 13")
+# the device cascade's output capacity: the most faces a frame can yield
+MAX_FACES = 64
 
 
 def _match_gallery(sims: torch.Tensor, rows=None):
@@ -81,7 +89,9 @@ def make_multistream_pipeline(detector, embed_model, gallery=None, *,
                               embed_size: int = 128, margin: int = 16,
                               minsize: int = 20, thresholds=(0.6, 0.7, 0.7),
                               sim_threshold: float = 0.5,
-                              dynamic_gallery: bool = False, device=None):
+                              dynamic_gallery: bool = False,
+                              max_faces: int = 0, int8_embed: bool = False,
+                              device=None):
     """Identify the best face in every frame of a same-shape batch
     ``[N, frame_h, frame_w, 3]`` (0-255).
 
@@ -93,7 +103,20 @@ def make_multistream_pipeline(detector, embed_model, gallery=None, *,
 
     ``dynamic_gallery=True`` returns fn(frames, gallery_n[, rows]) instead,
     with the L2-normalized gallery (:func:`normalize_gallery`) passed at
-    call time; columns >= ``rows`` are masked out of the argmax."""
+    call time; columns >= ``rows`` are masked out of the argmax.
+
+    ``max_faces`` > 0 runs :func:`make_multiface_pipeline` over the batch
+    instead: every field gains a leading N axis over its per-face arrays."""
+    if max_faces:
+        return _make_multiface_batched(
+            detector, embed_model, gallery, frame_h=frame_h,
+            frame_w=frame_w, embed_size=embed_size, margin=margin,
+            minsize=minsize, thresholds=thresholds,
+            sim_threshold=sim_threshold, max_faces=max_faces,
+            int8_embed=int8_embed, dynamic_gallery=dynamic_gallery,
+            device=device)
+    if int8_embed:
+        raise NotImplementedError(_INT8_EMBED)
     dev = resolve_device(device)
     detect_embed = _make_detect_embed(
         detector, embed_model, frame_h=frame_h, frame_w=frame_w,
@@ -121,12 +144,9 @@ def make_multistream_pipeline(detector, embed_model, gallery=None, *,
     return pipeline
 
 
-def make_recognition_pipeline(detector, embed_model, gallery=None, **kwargs):
-    """The single-frame pipeline: fn(frame [H, W, 3]) -> the
-    :func:`make_multistream_pipeline` dict without the leading axis (with
-    ``dynamic_gallery=True``: fn(frame, gallery_n[, rows]))."""
-    multi = make_multistream_pipeline(detector, embed_model, gallery,
-                                      **kwargs)
+def _single(multi):
+    """A batched pipeline as fn(frame [H, W, 3], *gallery args) -> its dict
+    without the leading axis."""
 
     def pipeline(frame, *args):
         frame = torch.as_tensor(frame, dtype=torch.float32)
@@ -136,10 +156,117 @@ def make_recognition_pipeline(detector, embed_model, gallery=None, **kwargs):
     return pipeline
 
 
+def make_recognition_pipeline(detector, embed_model, gallery=None, **kwargs):
+    """The single-frame pipeline: fn(frame [H, W, 3]) -> the
+    :func:`make_multistream_pipeline` dict without the leading axis (with
+    ``dynamic_gallery=True``: fn(frame, gallery_n[, rows]))."""
+    return _single(make_multistream_pipeline(detector, embed_model, gallery,
+                                             **kwargs))
+
+
+def make_multiface_pipeline(detector, embed_model, gallery=None, **kwargs):
+    """Identify every detected face of a frame: the top-``max_faces``
+    detections (by score, ties to the lower row as ``lax.top_k``) are
+    margin-cropped and resized as one batch, embedded as one batch and
+    matched with one gallery product.
+
+    Returns fn(frame [H, W, 3]) -> dict of per-face arrays (length
+    ``max_faces``): ``found`` (bool mask), ``boxes`` [K, 4], ``scores``,
+    ``indices`` (gallery row, -1 below threshold or not found),
+    ``similarities``, ``embeddings`` [K, D], plus the scalars
+    ``cap_dropped`` (the cascade's capacity drops) and ``topk_dropped``
+    (valid detections beyond ``max_faces``). ``dynamic_gallery=True``:
+    fn(frame, gallery_n[, rows]). Takes :func:`_make_multiface_batched`'s
+    keywords (``frame_h``, ``frame_w``, ``embed_size``, ``margin``,
+    ``minsize``, ``thresholds``, ``sim_threshold``, ``max_faces`` = 8,
+    ``int8_embed``, ``dynamic_gallery``, ``device``)."""
+    return _single(_make_multiface_batched(detector, embed_model, gallery,
+                                           **kwargs))
+
+
+def _make_multiface_batched(detector, embed_model, gallery=None, *,
+                            frame_h: int, frame_w: int, embed_size: int = 128,
+                            margin: int = 16, minsize: int = 20,
+                            thresholds=(0.6, 0.7, 0.7),
+                            sim_threshold: float = 0.5, max_faces: int = 8,
+                            int8_embed: bool = False,
+                            dynamic_gallery: bool = False, device=None):
+    """:func:`make_multiface_pipeline` over a batch of frames
+    ``[N, H, W, 3]``: every output gains a leading N axis."""
+    if max_faces > MAX_FACES:   # the cascade's out_cap; no silent truncation
+        raise ValueError(
+            f"max_faces ({max_faces}) exceeds the device cascade's output "
+            f"capacity ({MAX_FACES})")
+    if int8_embed:
+        raise NotImplementedError(_INT8_EMBED)
+    dev = resolve_device(device)
+    cascade = make_device_cascade(
+        detector.pnet, detector.rnet, detector.onet, frame_h, frame_w,
+        minsize=minsize, thresholds=thresholds, device=dev)
+    baked = None if dynamic_gallery else l2_normalize(
+        torch.as_tensor(np.asarray(gallery, np.float32), device=dev))
+    half = margin / 2
+
+    @torch.inference_mode()
+    def pipeline(frames, gallery_n=baked, rows=None):
+        frames = torch.as_tensor(frames, dtype=torch.float32, device=dev)
+        nf = frames.shape[0]
+        boxes, _, counts = cascade(frames)                 # [F, cap, 5]
+        valid = torch.isfinite(boxes[..., 4])
+        score = torch.where(valid, boxes[..., 4], float("-inf"))
+        k = min(max_faces, boxes.shape[1])
+        top_s, top_i = stable_topk(score, k)               # [F, K]
+        found = torch.isfinite(top_s)
+        sel = torch.gather(boxes[..., :4], 1,
+                           top_i[..., None].expand(nf, k, 4))
+        # margin pad + clip per face (crop_face semantics); rows of invalid
+        # faces may be non-finite and are masked by `found`
+        bxs = torch.stack([
+            torch.clamp(sel[..., 0] - half, min=0.0),
+            torch.clamp(sel[..., 1] - half, min=0.0),
+            torch.clamp(sel[..., 2] + half, max=float(frame_w)),
+            torch.clamp(sel[..., 3] + half, max=float(frame_h)),
+        ], dim=-1)
+        safe = torch.where(torch.isfinite(bxs), bxs, 0.0)
+        crops = crop_resize_boxes(frames, safe, embed_size)  # [F, K, S, S, 3]
+        gray = crops.mean(dim=-1, keepdim=True) / 255.0
+        _, feats = embed_model(gray.reshape(nf * k, embed_size,
+                                            embed_size, 1))
+        embs = l2_normalize(feats).reshape(nf, k, -1)       # [F, K, D]
+        idx, sim, real = _match_gallery(gallery_sims(embs, gallery_n), rows)
+        matched = found & real & (sim >= sim_threshold)
+        return {
+            "found": found,
+            "boxes": bxs,
+            "scores": top_s,
+            "indices": torch.where(matched, idx, -1).to(torch.int32),
+            "similarities": torch.where(found & real, sim, -2.0),
+            "embeddings": embs,
+            "cap_dropped": counts[:, 0] + counts[:, 1] + counts[:, 2],
+            "topk_dropped": torch.clamp(
+                valid.sum(-1, dtype=torch.int32) - k, min=0),
+        }
+
+    return pipeline
+
+
+def make_sharded_multistream_pipeline(*args, **kwargs):
+    raise NotImplementedError(_SHARDED)
+
+
+def make_gallery_sharded_multistream_pipeline(*args, **kwargs):
+    raise NotImplementedError(_SHARDED)
+
+
+def shard_gallery(*args, **kwargs):
+    raise NotImplementedError(_SHARDED)
+
+
 def normalize_gallery(gallery, dtype=torch.float32, device=None) -> torch.Tensor:
     """Gallery rows -> the L2-normalized ``[G, D]`` tensor the
-    ``dynamic_gallery`` pipelines take, stored as float32 or bfloat16
-    (normalized in float32 on the host, narrowed before the upload)."""
+    ``dynamic_gallery`` pipelines take, stored as float32, bfloat16 or int8
+    on the 127 scale (normalized in float32 on the host, narrowed before
+    the upload)."""
     rows = narrow_gallery_np(l2_normalize_np(np.asarray(gallery, np.float32)),
                              dtype)
     return rows.to(resolve_device(device))

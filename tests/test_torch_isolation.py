@@ -22,6 +22,7 @@ from improving_face_recognition_performance_using_triplet_loss_tpu_torch.cli imp
     align,
     eval_cos,
     extract_features,
+    identify,
     import_params,
     lfw_eval,
     lfw_run,
@@ -34,11 +35,20 @@ from improving_face_recognition_performance_using_triplet_loss_tpu_torch.detect 
 from improving_face_recognition_performance_using_triplet_loss_tpu_torch.detect.align import (
     align_directory,
 )
+from improving_face_recognition_performance_using_triplet_loss_tpu_torch.detect.bulk import (
+    detect_faces_bulk,
+)
 from improving_face_recognition_performance_using_triplet_loss_tpu_torch.detect.device_cascade import (
     DeviceCascade,
 )
 from improving_face_recognition_performance_using_triplet_loss_tpu_torch.models.efm_symbol import (
     build_efmnet342,
+)
+from improving_face_recognition_performance_using_triplet_loss_tpu_torch.serve import (
+    device_gallery,
+    gallery,
+    gallery_service,
+    person_store,
 )
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -88,7 +98,11 @@ def test_port_imports_without_jax_or_triton():
                  "cli.extract_features", "data.records", "data.synthetic",
                  "cli.lfw_eval", "cli.lfw_run", "cli.align",
                  "cli.import_params", "eval.lfw", "data.lfw",
-                 "utils.mxnet_import", "detect.align", "detect.pipeline"):
+                 "utils.mxnet_import", "detect.align", "detect.pipeline",
+                 "serve.device_gallery", "serve.gallery",
+                 "serve.gallery_service", "serve.person_store",
+                 "serve.recognition", "serve.video", "serve.native",
+                 "detect.bulk", "cli.identify", "cli._common"):
         assert f"{PORT}.{name}" in mods, name
     assert int(out[1]) == len(mods) >= 20
 
@@ -97,9 +111,27 @@ def test_port_imports_without_jax_or_triton():
                                    "serve_demo", "train_head", "eval_cos",
                                    "extract_features", "lfw_eval", "lfw_run",
                                    "align", "import_params",
-                                   "device_cascade", "align_directory"])
+                                   "device_cascade", "align_directory",
+                                   "serve_demo_camera", "serve_demo_video",
+                                   "serve_demo_video_detect",
+                                   "identify_tpu", "identify_device_gallery",
+                                   "device_gallery", "gallery_matcher",
+                                   "person_store_match_batch",
+                                   "gallery_service", "detect_faces_bulk"])
 def test_default_device_without_cuda_raises(monkeypatch, tmp_path, entry):
+    import numpy as np
+
+    if entry.startswith(("identify", "person_store", "gallery_service")):
+        # a one-person store and probes: the host needs no card for these
+        np.savez(tmp_path / "f.npz", features=np.ones((2, 4), np.float32),
+                 labels=np.zeros(2, np.int64))
+        with person_store.PersonStore(str(tmp_path / "p.sqlite"),
+                                      4) as store:
+            store.register_person(person_store.Person(name="a"),
+                                  [np.ones(4, np.float32)])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    match_person = ["match-person", "--store", str(tmp_path / "p.sqlite"),
+                    "--features", str(tmp_path / "f.npz")]
     call = {
         "resolve_device": lambda: tdevice.resolve_device(),
         "detector": lambda: MTCNNDetector(),
@@ -124,6 +156,25 @@ def test_default_device_without_cuda_raises(monkeypatch, tmp_path, entry):
         "device_cascade": lambda: DeviceCascade(MTCNNDetector()),
         "align_directory": lambda: align_directory(
             str(tmp_path), str(tmp_path / "out")),
+        "serve_demo_camera": lambda: serve_demo.main([
+            "--store", str(tmp_path / "d.fjdb")]),
+        "serve_demo_video": lambda: serve_demo.main([
+            "--video", str(tmp_path / "v.avi")]),
+        "serve_demo_video_detect": lambda: serve_demo.main([
+            "--video", str(tmp_path / "v.avi"), "--detect",
+            "--dynamic-gallery", "--person-db", str(tmp_path / "p.sqlite")]),
+        "identify_tpu": lambda: identify.main(match_person + ["--tpu"]),
+        "identify_device_gallery": lambda: identify.main(
+            match_person + ["--device-gallery"]),
+        "device_gallery": lambda: device_gallery.DeviceGallery(4),
+        "gallery_matcher": lambda: gallery.make_gallery_matcher(
+            np.ones((2, 4))),
+        "person_store_match_batch": lambda: person_store.PersonStore(
+            str(tmp_path / "p.sqlite"), 4).match_batch(np.ones((1, 4))),
+        "gallery_service": lambda: gallery_service.PersonGalleryService(
+            person_store.PersonStore(str(tmp_path / "p.sqlite"), 4)),
+        "detect_faces_bulk": lambda: detect_faces_bulk(
+            [np.zeros((32, 32, 3), np.uint8)]),
     }[entry]
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         call()

@@ -401,5 +401,8 @@ def test_gallery_sims_match_jax(dtype):
     np.testing.assert_allclose(tdist.gallery_sims(te, tn).numpy(),
                                np.asarray(jdist.gallery_sims(je, jn)),
                                atol=1e-5)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tdist.narrow_gallery_np(gal, np.int8)
+    # int8 rows (the 127 scale) are stored too, equal to JAX's
+    np.testing.assert_array_equal(
+        tdist.narrow_gallery_np(tdist.l2_normalize_np(gal), np.int8).numpy(),
+        np.asarray(jdist.narrow_gallery_np(jdist.l2_normalize_np(gal),
+                                           jnp.int8)))

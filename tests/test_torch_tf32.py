@@ -20,6 +20,7 @@ from improving_face_recognition_performance_using_triplet_loss_tpu_torch.cli imp
     align,
     eval_cos,
     extract_features,
+    identify,
     import_params,
     lfw_eval,
     lfw_run,
@@ -60,10 +61,33 @@ def _lfw_inputs(tmp_path):
 LFW_ENTRIES = ("lfw_eval", "lfw_run", "align", "import_params")
 
 
+# the entries that read a person store (and a video)
+SERVING_ENTRIES = ("identify", "serve_demo_camera", "serve_demo_video_detect")
+
+
+def _serving_inputs(tmp_path):
+    """A one-person store with its probes, and a 6-frame scene video (cv2
+    writes it: only the video entry needs it)."""
+    from improving_face_recognition_performance_using_triplet_loss_tpu_torch.serve import (
+        person_store,
+        video,
+    )
+
+    feats = np.random.default_rng(1).normal(size=(3, 342)).astype(np.float32)
+    np.savez(tmp_path / "f.npz", features=feats, labels=np.zeros(3, np.int64))
+    with person_store.PersonStore(str(tmp_path / "p.sqlite"), 342) as store:
+        store.register_person(person_store.Person(name="a"), list(feats))
+    base = np.random.default_rng(2).uniform(40, 210, (6, 6, 3))
+    scene = np.kron(base, np.ones((8, 8, 1))).astype(np.uint8)
+    video.write_test_video(str(tmp_path / "v.avi"), np.stack([scene] * 6))
+
+
 def _runs(tmp_path, entry):
     out = str(tmp_path)
     if entry in LFW_ENTRIES:
         _lfw_inputs(tmp_path)
+    if entry in SERVING_ENTRIES:
+        _serving_inputs(tmp_path)
     return {
         "serve_demo": lambda: serve_demo.main([
             "--streams", "1", "--frames", "1", "--frame-size", "48", "48",
@@ -91,11 +115,26 @@ def _runs(tmp_path, entry):
         "import_params": lambda: import_params.main([
             os.path.join(out, "m.params"), "--out-dir",
             os.path.join(out, "imported"), "--verify", "--device", "cpu"]),
+        "identify": lambda: identify.main([
+            "match-person", "--store", os.path.join(out, "p.sqlite"),
+            "--features", os.path.join(out, "f.npz"), "--tpu", "--device",
+            "cpu"]),
+        "serve_demo_camera": lambda: serve_demo.main([
+            "--image-size", "32", "--identities", "2", "--frames", "2",
+            "--device", "cpu", "--store", os.path.join(out, "d.fjdb")]),
+        "serve_demo_video_detect": lambda: serve_demo.main([
+            "--video", os.path.join(out, "v.avi"), "--detect",
+            "--frame-size", "48", "48", "--image-size", "32",
+            "--det-thresholds", "0.3", "0.3", "0.3", "--dynamic-gallery",
+            "--person-db", os.path.join(out, "p.sqlite"),
+            "--register-frames", "0", "--max-faces", "2", "--fps-cap", "0",
+            "--device", "cpu", "--store", os.path.join(out, "d.fjdb")]),
     }
 
 
 @pytest.mark.parametrize("entry", ["serve_demo", "extract_features",
-                                   "train_head", "eval_cos", *LFW_ENTRIES])
+                                   "train_head", "eval_cos", *LFW_ENTRIES,
+                                   *SERVING_ENTRIES])
 def test_cli_turns_tf32_off(entry, tmp_path):
     saved = (torch.backends.cudnn.allow_tf32,
              torch.backends.cuda.matmul.allow_tf32)
