@@ -53,7 +53,25 @@ before it and read just after:
   and ``--device-gallery`` in f32, bf16 and int8 (int8 bit-equal to a
   host recomputation); ``DeviceGallery`` at 131,072 x 342 in each dtype
   (in-place rows, a doubling, host us per add); and the single-camera and
-  ``--video`` modes through ``RecognitionService``.
+  ``--video`` modes through ``RecognitionService``; and the stream
+  synchronizations and host-to-device copies a frame.
+- int8 inference (``int8``): ``extract_features --int8`` at batch 128
+  with LightCNN9 (B4 once a batch, B6 never: B6 fuses conv2, which the
+  int8 route quantizes), LightCNN29 (B3 once, B2 29 times) at 128x128 and
+  EFMNet342 at 64x64, each with one int8 conv's int32 sums against the
+  CPU, a whole batch against its CPU rerun and the float32 run by cosine,
+  every kernel call of one batch held to its plain version, and
+  embeddings/s of int8, float32 and bfloat16; the hard-coded LightCNN9
+  ladder (B3 once); ``make_multistream_pipeline(..., int8_embed=True)``
+  at the slice's setup (B5 4, B3 1, B2 29 a dispatch, each call held to
+  its plain version; answers against a CPU rerun; frames/s against float32
+  serving); and one LightCNN29 ``bwd_im2col`` train step against the
+  default route (B1, B2, ``efm3_bwd``; every gradient by relative norm).
+- 68-point landmarks (``landmarks``): ``landmarks68 train``,
+  ``export-dat``, ``import-dat --export-native`` and ``detect`` through
+  the ``python -m <port>.cli`` dispatcher, the ``.dat`` round trip
+  byte-equal, the port's ``NativeErt`` over the port's export against
+  ``predict``, ``mtcnn_ert_detect`` on the card against a CPU rerun.
 
 The efm3 phase also holds the backward kernel ``efm3_bwd`` bit for bit to
 the plain version's autograd (every shape of a LightCNN29 training step,
@@ -118,7 +136,9 @@ PATH_KERNELS = {"slice": ("nms", "stem", "efm3"), "head": ("mining",),
                 "backbone": ("mining", "efm3", "efm3_bwd", "stem",
                              "front9", "stem2"),
                 "lfw": ("nms", "stem_bf16", "efm3", "front9_bf16"),
-                "live": ("nms", "stem", "efm3")}
+                "live": ("nms", "stem", "efm3"),
+                "int8": ("nms", "stem", "efm3", "stem2", "mining",
+                         "efm3_bwd")}
 
 
 def slice_argv(frames: int, device: str) -> list[str]:
@@ -1259,9 +1279,10 @@ EXTRACT_BF16_RUNS = {
 
 
 def _extract(ctx, store: str, model: str, device: str, out: str,
-             batch: int, bf16: bool = False):
+             batch: int, bf16: bool = False, int8: bool = False,
+             path: str = "extract"):
     """One ``extract_features`` run over ``store``, the launch counts of
-    the extraction path read around it."""
+    ``path`` read around it."""
     import torch
 
     from improving_face_recognition_performance_using_triplet_loss_tpu_torch.cli import (
@@ -1273,11 +1294,13 @@ def _extract(ctx, store: str, model: str, device: str, out: str,
     res = extract_features.main(
         ["--train-images", store, "--model", model, "--batch-size",
          str(batch), "--device", device, "--out-dir", out]
-        + (["--bf16"] if bf16 else []))["train"]
+        + (["--bf16"] if bf16 else []) + (["--int8"] if int8 else []))[
+            "train"]
     if device == "cuda":
         torch.cuda.synchronize()
+    kernels = set(PATH_KERNELS[path]) | set(PATH_KERNELS["extract"])
     return res, ({k: c.count for k, c in ctx["counters"].items()
-                  if k in PATH_KERNELS["extract"]})
+                  if k in kernels})
 
 
 def phase_extract(ctx):
@@ -1928,8 +1951,8 @@ def lfw_imports(tmp: str) -> tuple[dict, dict]:
 
 
 class PathCalls:
-    """Within ``with``: the embedding nets' kernel calls (B3 or B6 once a
-    batch, which starts the batch, and B2 through ``ops.mfm``) go through
+    """Within ``with``: the embedding nets' kernel calls (B3, B4 or B6 once
+    a batch, which starts the batch, and B2 through ``ops.mfm``) go through
     the kernels as on the path, and those of the batches in ``keep`` are
     kept (a copy of each input and output) to be held to the plain
     versions afterwards (:func:`hold_path_calls`); ``keep=None`` keeps
@@ -1969,16 +1992,19 @@ class PathCalls:
 
         self._mods = lightcnn, mfm, boxes
         self._saved = (lightcnn.stem_conv_maxout_pool, lightcnn.front9_chain,
-                       mfm.efm3_rows, boxes._nms_batched)
+                       mfm.efm3_rows, boxes._nms_batched, lightcnn.stem2_conv)
         fns = ((stem.stem_conv_maxout_pool_plain,
                 lambda x, params, packed=None: front9.front9_plain(x, params),
-                efm3.efm3_rows_plain, nms.nms_mask_plain) if self.plain
+                efm3.efm3_rows_plain, nms.nms_mask_plain,
+                stem.stem2_conv_plain) if self.plain
                else self._saved)
         net_starts = 0 if self.nms else 1
         lightcnn.stem_conv_maxout_pool = lambda *a, **k: self._call(
             "stem", fns[0], a, k, net_starts)
         lightcnn.front9_chain = lambda x, params, packed=None: self._call(
             "front9", fns[1], (x, params), {"packed": packed}, net_starts)
+        lightcnn.stem2_conv = lambda *a: self._call("stem2", fns[4], a, {},
+                                                    net_starts)
         mfm.efm3_rows = lambda x: self._call("efm3", fns[2], (x,), {}, 0)
         if self.nms:
             boxes._nms_batched = lambda b, th, method="Union": self._call(
@@ -1988,7 +2014,7 @@ class PathCalls:
     def __exit__(self, *exc):
         lightcnn, mfm, boxes = self._mods
         (lightcnn.stem_conv_maxout_pool, lightcnn.front9_chain,
-         mfm.efm3_rows, boxes._nms_batched) = self._saved
+         mfm.efm3_rows, boxes._nms_batched, lightcnn.stem2_conv) = self._saved
         return False
 
 
@@ -1997,6 +2023,8 @@ def _plain_call(efm3, front9, stem, kind, args, kwargs):
         return efm3.efm3_rows_plain(*args)
     if kind == "stem":
         return stem.stem_conv_maxout_pool_plain(*args, **kwargs)
+    if kind == "stem2":
+        return stem.stem2_conv_plain(*args)
     if kind == "nms":
         from improving_face_recognition_performance_using_triplet_loss_tpu_torch.ops.cuda import (
             nms,
@@ -2024,8 +2052,9 @@ def hold_path_calls(torch, calls) -> dict:
         with torch.no_grad():
             want = _plain_call(efm3, front9, stem, kind, args, kwargs)
         tol, name = {"efm3": (0.0, "efm3"), "stem": (1e-2, "stem"),
-                     "front9": (2e-2, "front9"), "nms": (0.0, "nms")}[kind]
-        if x.dtype == torch.bfloat16 and kind not in ("efm3", "nms"):
+                     "stem2": (1e-2, "stem2"), "front9": (2e-2, "front9"),
+                     "nms": (0.0, "nms")}[kind]
+        if x.dtype == torch.bfloat16 and kind in ("stem", "front9"):
             name += "_bf16"
         got_f, want_f = got.float(), want.float()
         err = float((got_f - want_f).abs().max())
@@ -2425,6 +2454,9 @@ LIVE_PERSONS, LIVE_FACES_PER = 10000, 10
 LIVE_PROBES, LIVE_ENROLLED_SHARE = 1024, 0.9
 LIVE_DG_CAPACITY, LIVE_ADDS = 131072, 1000
 LIVE_TRACED = 16
+# C6: stream synchronizations a live frame, of which the CLI's own are 9
+# (the frame's upload and 8 output reads)
+LIVE_MAX_SYNCS = 12
 # one quantization step of one int8 probe element moves an int8
 # similarity by at most 127 / 127^2
 LIVE_INT8_SIM_ATOL = 1.0 / 127.0
@@ -2623,8 +2655,10 @@ def live_timing(torch, args, frames, db) -> dict:
     output read back) over the 64 decoded frames, three unprofiled passes,
     then one
     traced pass over LIVE_TRACED frames: device ms a frame by family, the
-    idle share against the unprofiled wall, and the CUDA runtime's
-    synchronizing calls a frame."""
+    idle share against the unprofiled wall, the CUDA runtime's
+    synchronizing calls a frame, and the stream synchronizations and
+    host-to-device copies a frame (C6: at most LIVE_MAX_SYNCS
+    synchronizations)."""
     from collections import defaultdict
 
     from torch.profiler import ProfilerActivity, profile
@@ -2654,19 +2688,25 @@ def live_timing(torch, args, frames, db) -> dict:
                 serve_demo.run_frame(pipe, f, svc, "cuda")
             torch.cuda.synchronize()
     by_fam, by_name, launches = defaultdict(float), defaultdict(float), 0
-    runtime = defaultdict(int)
+    runtime, h2d = defaultdict(int), 0
     for ev in prof.events():
         if ev.device_type == torch.autograd.DeviceType.CUDA:
             ms = ev.time_range.elapsed_us() / 1e3 / LIVE_TRACED
             by_fam[live_family(ev.name)] += ms
             by_name[ev.name[:80]] += ms
             launches += 1
+            h2d += ev.name.startswith("Memcpy HtoD")
         elif ev.name.startswith("cuda") and ("Synchronize" in ev.name
                                              or "Memcpy" in ev.name):
             runtime[ev.name] += 1
     device_ms = sum(by_fam.values())
     wall_ms = min(walls)
-    return {"ms_per_frame": walls, "frames_per_s": [1e3 / w for w in walls],
+    syncs = runtime["cudaStreamSynchronize"] / LIVE_TRACED
+    return {"checks": {f"stream_syncs_per_frame_max_{LIVE_MAX_SYNCS}":
+                       syncs <= LIVE_MAX_SYNCS},
+            "stream_syncs_per_frame": syncs,
+            "h2d_copies_per_frame": h2d / LIVE_TRACED,
+            "ms_per_frame": walls, "frames_per_s": [1e3 / w for w in walls],
             "device_ms_per_frame": device_ms,
             "device_idle_share": max(0.0, 1.0 - device_ms / wall_ms),
             "kernel_launches_per_frame": launches / LIVE_TRACED,
@@ -2899,6 +2939,10 @@ def phase_live(ctx):
     emit({"live_frames_per_s": report["timing"]["frames_per_s"],
           "live_device_ms_per_frame": report["timing"]["device_ms_per_frame"],
           "live_idle_share": report["timing"]["device_idle_share"],
+          "live_stream_syncs_per_frame":
+              report["timing"]["stream_syncs_per_frame"],
+          "live_h2d_copies_per_frame":
+              report["timing"]["h2d_copies_per_frame"],
           "identify_route_ms": report["identify"]["route_ms"],
           "device_gallery_add_us": {k: report["device_gallery"][k]
                                     ["add_host_us"]
@@ -2907,11 +2951,622 @@ def phase_live(ctx):
             secs, **report}
 
 
+# ------------------------------------------------------------------ int8
+
+# the int8 extraction runs: model, input side, rows of the store, and the
+# kernels that must launch once per batch (or never)
+INT8_RUNS = {
+    "lightcnn9_128": ("lightcnn9", 128,
+                      {"stem2": 1, "front9": 0, "front9_bf16": 0}),
+    "lightcnn29_128": ("lightcnn29", 128,
+                       {"stem": 1, "stem_bf16": 0, "efm3": 29}),
+    "efmnet342_64": ("efmnet342", 64, {"stem": 1, "efm3": 29}),
+}
+INT8_ROWS = 512
+# the whole batch an int8 run holds against its CPU rerun: the activation
+# scale spans the batch, so both sides run the same rows as one batch
+INT8_CPU_BATCH = 16
+# int8 against its CPU rerun and against the float32 forward, by cosine:
+# one ulp of input moves an int8 embedding by up to 2e-4
+# (tests/test_torch_quantized.py), and 1e-3 is JAX's own contract
+INT8_COS_CPU, INT8_COS_F32 = 0.9995, 0.999
+# embeddings/s: batches timed after two warm-up batches
+INT8_TIMED_BATCHES = 10
+INT8_SERVE_DISPATCHES = 8
+
+
+class Int8Convs:
+    """Within ``with``: every int8 conv of ``ops.quantized`` is counted,
+    and the first one's int8 operands and int32 sums are kept."""
+
+    def __enter__(self):
+        from improving_face_recognition_performance_using_triplet_loss_tpu_torch.ops import (
+            quantized,
+        )
+
+        self._mod, self._real = quantized, quantized.int8_conv_nhwc
+        self.calls, self.first = 0, None
+
+        def counting(xq, w8, stride=(1, 1), padding=(0, 0)):
+            out = self._real(xq, w8, stride, padding)
+            if self.first is None:
+                self.first = (xq.clone(), w8.clone(), stride, padding,
+                              out.clone())
+            self.calls += 1
+            return out
+
+        quantized.int8_conv_nhwc = counting
+        return self
+
+    def __exit__(self, *exc):
+        self._mod.int8_conv_nhwc = self._real
+        return False
+
+    def sums_equal_cpu(self, torch) -> bool:
+        """The kept conv's int32 sums against the CPU's exact product on
+        the same int8 operands."""
+        xq, w8, stride, padding, out = self.first
+        want = self._real(xq.cpu(), w8.cpu(), stride, padding)
+        return bool(out.dtype == torch.int32 and torch.equal(out.cpu(), want))
+
+
+def _int8_model(model: str, side: int, dtype, device):
+    import torch
+
+    from improving_face_recognition_performance_using_triplet_loss_tpu_torch.models import (
+        model_by_name,
+    )
+
+    return model_by_name(model, 1000, input_hw=(side, side), dtype=dtype,
+                         device=device,
+                         generator=torch.Generator().manual_seed(0))
+
+
+def int8_extract_run(ctx, torch, name) -> tuple[dict, dict]:
+    """One model: ``extract_features --int8`` at batch 128 over a seeded
+    store on the card (launches per batch, the int8 convs a batch, one
+    conv's int32 sums against the CPU), the same store in float32 (cosine
+    to it), one whole batch of INT8_CPU_BATCH rows on the card and the CPU
+    (cosine), the kernel calls of one int8 batch held to their plain
+    versions, and embeddings/s of int8, float32 and bfloat16 (batches of
+    128 timed on the card)."""
+    import numpy as np
+
+    from improving_face_recognition_performance_using_triplet_loss_tpu_torch.data import (
+        save_image_store,
+        synthetic_faces,
+    )
+    from improving_face_recognition_performance_using_triplet_loss_tpu_torch.extract import (
+        make_extract_fn,
+    )
+    from improving_face_recognition_performance_using_triplet_loss_tpu_torch.ops.quantized import (
+        Int8ConvRoute,
+    )
+
+    model, side, per_batch = INT8_RUNS[name]
+    faces, labels = synthetic_faces(num_ids=INT8_ROWS // 8, per_id=8,
+                                    size=side, seed=3)
+    checks, rep = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        store = os.path.join(tmp, "faces.npz")
+        save_image_store(store, faces, labels)
+        small = os.path.join(tmp, "small.npz")
+        save_image_store(small, faces[:INT8_CPU_BATCH],
+                         labels[:INT8_CPU_BATCH])
+        with Int8Convs() as convs:
+            res, launches = _extract(ctx, store, model, "cuda",
+                                     os.path.join(tmp, "int8"),
+                                     EXTRACT_BATCH, int8=True, path="int8")
+        read_launches_from(ctx, launches)
+        batches = -(-INT8_ROWS // EXTRACT_BATCH)
+        f32, _ = _extract(ctx, store, model, "cuda", os.path.join(tmp, "f32"),
+                          EXTRACT_BATCH, path="int8")
+        card, _ = _extract(ctx, small, model, "cuda",
+                           os.path.join(tmp, "card16"), INT8_CPU_BATCH,
+                           int8=True, path="int8")
+        cpu, _ = _extract(ctx, small, model, "cpu", os.path.join(tmp, "cpu16"),
+                          INT8_CPU_BATCH, int8=True, path="int8")
+    net = _int8_model(model, side, torch.float32, "cuda")
+    route = Int8ConvRoute()
+    eligible = [m for m in net.modules() if isinstance(m, torch.nn.Conv2d)
+                and route.reroutes(m)]
+    cos_f32 = _cosines(res.features.astype(np.float64), f32.features)
+    cos_cpu = _cosines(card.features.astype(np.float64), cpu.features)
+    for k, n in per_batch.items():
+        checks[f"{k}_launches"] = launches[k] == n * batches
+    checks.update({
+        "int8_convs_a_batch": convs.calls == len(eligible) * batches,
+        "int32_sums_equal_cpu": convs.sums_equal_cpu(torch),
+        f"cos_vs_f32_min_{INT8_COS_F32}": bool(cos_f32.min() >= INT8_COS_F32),
+        f"whole_batch_cos_vs_cpu_min_{INT8_COS_CPU}": bool(
+            cos_cpu.min() >= INT8_COS_CPU),
+        "finite": bool(np.isfinite(res.features).all())})
+    x = torch.from_numpy(faces[:EXTRACT_BATCH]).cuda()
+    with PathCalls(keep=None) as calls:
+        make_extract_fn(net, int8=True)(x)
+        torch.cuda.synchronize()
+    held = hold_path_calls(torch, calls.calls)
+    checks["kernel_calls_equal_plain"] = all(r["ok"] for r in held.values())
+    rates, by_fam = {}, {}
+    fn = make_extract_fn(net, int8=True)
+    fn(x)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn(x)
+        torch.cuda.synchronize()
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            fam = live_family(ev.name)
+            by_fam[fam] = by_fam.get(fam, 0.0) + ev.time_range.elapsed_us() / 1e3
+    for label, dtype, int8 in (("int8", torch.float32, True),
+                               ("f32", torch.float32, False),
+                               ("bf16", torch.bfloat16, False)):
+        if label == "bf16" and model == "efmnet342":
+            continue
+        m = net if dtype == torch.float32 else _int8_model(model, side,
+                                                           dtype, "cuda")
+        fn = make_extract_fn(m, int8=int8)
+        ms = time_ms(torch, lambda: fn(x), INT8_TIMED_BATCHES, warmup=2)
+        rates[label] = EXTRACT_BATCH / ms * 1e3
+    rep.update({"launches": launches, "batches": batches,
+                "int8_convs_per_batch": convs.calls / batches,
+                "eligible_convs": len(eligible),
+                "cos_vs_f32_min": float(cos_f32.min()),
+                "cos_vs_f32_mean": float(cos_f32.mean()),
+                "whole_batch_cos_vs_cpu_min": float(cos_cpu.min()),
+                "held_kernel_calls": held, "embeddings_per_s": rates,
+                "int8_batch_device_ms_by_family": dict(sorted(
+                    by_fam.items(), key=lambda kv: -kv[1]))})
+    return checks, rep
+
+
+def int8_hardcoded(ctx, torch) -> tuple[dict, dict]:
+    """The hard-coded LightCNN9 ladder (``make_int8_lightcnn9_extract``,
+    f32 compute) on one batch of 128 at 128x128: B3 once, its output held
+    to the plain version on the same input, embeddings within
+    INT8_COS_F32 of the generic route's (as the JAX package holds them)."""
+    import numpy as np
+
+    from improving_face_recognition_performance_using_triplet_loss_tpu_torch.ops import (
+        quantized,
+    )
+    from improving_face_recognition_performance_using_triplet_loss_tpu_torch.ops.cuda import (
+        stem,
+    )
+
+    net = _int8_model("lightcnn9", 128, torch.float32, "cuda")
+    x = torch.rand(EXTRACT_BATCH, 128, 128, 1, device="cuda",
+                   generator=torch.Generator("cuda").manual_seed(0))
+    q = quantized.quantize_lightcnn9_params(net.flax_params(), device="cuda")
+    fn = quantized.make_int8_lightcnn9_extract(q, compute_dtype=torch.float32)
+    for c in ctx["counters"].values():
+        c.reset()
+    got = fn(x)
+    torch.cuda.synchronize()
+    b3 = ctx["counters"]["stem"].count
+    generic = quantized.make_int8_extract(net, compute_dtype=torch.float32)(x)
+    w1, b1 = q["conv1"]["kernel"], q["conv1"]["bias"]
+    err = float((stem.stem_conv_maxout_pool(x, w1, b1, maxout=2)
+                 - stem.stem_conv_maxout_pool_plain(x, w1, b1, maxout=2))
+                .abs().max())
+    cos = _cosines(got.cpu().numpy().astype(np.float64),
+                   generic.cpu().numpy())
+    checks = {"stem_once": b3 == 1, "stem_equals_plain_1e-5": err <= 1e-5,
+              f"cos_vs_generic_min_{INT8_COS_F32}": bool(
+                  cos.min() >= INT8_COS_F32)}
+    return checks, {"stem_launches": b3, "stem_max_abs_err": err,
+                    "cos_vs_generic_min": float(cos.min())}
+
+
+def _int8_serving(torch, device, int8: bool):
+    """The slice's serving setup (serve_demo --streams 16 at 240x320,
+    EFMNet342 at 64x64, MTCNN and the 1,000-row gallery from seed 0) with
+    ``int8_embed``: ``(pipeline, frames on the device, gallery)``."""
+    import numpy as np
+
+    from improving_face_recognition_performance_using_triplet_loss_tpu_torch.detect import (
+        MTCNNDetector,
+    )
+    from improving_face_recognition_performance_using_triplet_loss_tpu_torch.serve.pipeline import (
+        make_multistream_pipeline,
+    )
+
+    model = _int8_model("efmnet342", IMAGE, torch.float32, device)
+    rng = np.random.default_rng(1)
+    gallery = rng.normal(size=(1000, 342)).astype(np.float32)
+    pipe = make_multistream_pipeline(
+        MTCNNDetector(seed=0, device=device), model, gallery,
+        frame_h=FRAME_HW[0], frame_w=FRAME_HW[1], embed_size=IMAGE,
+        thresholds=(0.3, 0.3, 0.3), sim_threshold=0.5, int8_embed=int8,
+        device=device)
+    frames = torch.as_tensor(rng.uniform(0, 255, (STREAMS,) + FRAME_HW + (3,)),
+                             dtype=torch.float32, device=device)
+    return pipe, frames, gallery
+
+
+def _decided_equal(got_idx, want_idx, got_emb, want_emb, gallery) -> tuple:
+    """Gallery indices equal wherever the CPU's best similarity leads the
+    next by more than twice the distance between the two embeddings (a
+    unit row moves a similarity by at most that distance: only such a lead
+    fixes the argmax on both sides). Returns (equal, decided)."""
+    import numpy as np
+
+    g = gallery / np.linalg.norm(gallery, axis=1, keepdims=True)
+    sims = np.sort(want_emb.astype(np.float64) @ g.T, axis=-1)
+    lead = sims[:, -1] - sims[:, -2]
+    dist = np.linalg.norm(got_emb.astype(np.float64) - want_emb, axis=-1)
+    decided = lead > 2.0 * dist
+    return (bool(np.array_equal(got_idx[decided], want_idx[decided])),
+            int(decided.sum()))
+
+
+def int8_serving(ctx, torch) -> tuple[dict, dict]:
+    """``make_multistream_pipeline(..., int8_embed=True)``: one dispatch
+    counted (B5 4, B3 1, B2 29) with each kernel call held to its plain
+    version, the answers against a CPU rerun of the same frames (found
+    equal, indices equal where decided, embeddings by cosine), frames/s of
+    int8 against float32 serving in turns."""
+    import numpy as np
+
+    pipe, frames, gallery = _int8_serving(torch, "cuda", True)
+    pipe(frames)
+    torch.cuda.synchronize()
+    for c in ctx["counters"].values():
+        c.reset()
+    with PathCalls(keep=None, nms=True) as calls:
+        out = pipe(frames)
+        torch.cuda.synchronize()
+    launches = read_launches(ctx, "int8")
+    held = hold_path_calls(torch, calls.calls)
+    out = {k: v.cpu() for k, v in out.items()}
+    cpu_pipe, cpu_frames, _ = _int8_serving(torch, "cpu", True)
+    cpu = cpu_pipe(frames.cpu())
+    found = out["found"].numpy()
+    both = found & cpu["found"].numpy()
+    cos = _cosines(out["embedding"].numpy()[both].astype(np.float64),
+                   cpu["embedding"].numpy()[both])
+    same, decided = _decided_equal(out["index"].numpy()[both],
+                                   cpu["index"].numpy()[both],
+                                   out["embedding"].numpy()[both],
+                                   cpu["embedding"].numpy()[both], gallery)
+    f32_pipe, _, _ = _int8_serving(torch, "cuda", False)
+    f32_pipe(frames)
+    rates = {"int8": [], "f32": []}
+    for label in ("int8", "f32", "f32", "int8"):
+        p = pipe if label == "int8" else f32_pipe
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(INT8_SERVE_DISPATCHES):
+            p(frames)
+        torch.cuda.synchronize()
+        rates[label].append(STREAMS * INT8_SERVE_DISPATCHES
+                            / (time.perf_counter() - t0))
+    checks = {"nms_4": launches["nms"] == 4, "stem_1": launches["stem"] == 1,
+              "efm3_29": launches["efm3"] == 29,
+              "kernel_calls_equal_plain": all(r["ok"] for r in held.values()),
+              "found_equal_cpu": bool(np.array_equal(
+                  found, cpu["found"].numpy()) and found.any()),
+              "decided_indices_equal_cpu": same,
+              f"cos_vs_cpu_min_{INT8_COS_CPU}": bool(
+                  cos.min() >= INT8_COS_CPU)}
+    return checks, {"launches": launches, "held_kernel_calls": held,
+                    "faces": int(found.sum()), "indices_decided": decided,
+                    "cos_vs_cpu_min": float(cos.min()),
+                    "frames_per_s": rates}
+
+
+def int8_bwd_im2col(ctx, torch) -> tuple[dict, dict]:
+    """One LightCNN29 train step at the backbone phase's width (128x128,
+    64 pairs, 55,005 classes, Adam, ``semi_hard_fused``, margin 2) with
+    ``bwd_im2col=True`` against the default route from the same state,
+    TF32 off: every parameter's gradient within BACKBONE_GRAD_RTOL by
+    relative norm (a second default-route copy gives cuDNN's own floor);
+    B1 once, B2 30 and ``efm3_bwd`` 30 times in the im2col step."""
+    import copy
+
+    from improving_face_recognition_performance_using_triplet_loss_tpu_torch.train import (
+        TrainState,
+        backbone_optimizer,
+        create_train_state,
+        make_backbone_train_step,
+    )
+
+    full_f32()
+    faces, labels = backbone_faces(2 * BACKBONE_PAIRS, BACKBONE_SIDE, 5)
+    batch = (faces[0::2], faces[1::2], labels[0::2])
+    model = _int8_model("lightcnn29", BACKBONE_SIDE, torch.float32, "cuda")
+    model = type(model)(BACKBONE_CLASSES, (BACKBONE_SIDE,) * 2)
+    model.init_weights(torch.Generator().manual_seed(0))
+    model = model.cuda()
+    spec = backbone_optimizer("adam")
+    state = create_train_state(model, spec, 0)
+
+    def twin():
+        m = copy.deepcopy(state.model)
+        opt = spec.build(m.parameters())
+        return TrainState(model=m, optimizer=opt, seed=0, spec=spec)
+
+    twins = [twin(), twin()]
+    kw = dict(mining_mode="semi_hard_fused", margin=2.0)
+    kept = _keep_grads(state)
+    for c in ctx["counters"].values():
+        c.reset()
+    make_backbone_train_step(bwd_im2col=True, **kw)(state, *batch)
+    torch.cuda.synchronize()
+    launches = read_launches(ctx, "int8")
+    plain = [_keep_grads(t) for t in twins]
+    step = make_backbone_train_step(**kw)
+    for t in twins:
+        step(t, *batch)
+    rel = _rel_gaps(torch, kept, plain[0])
+    floor = _rel_gaps(torch, plain[1], plain[0])
+    del state.apply_update, twins[0].apply_update
+    step_ms = {}
+    for label, st, fn in (("bwd_im2col", state,
+                           make_backbone_train_step(bwd_im2col=True, **kw)),
+                          ("default", twins[0], step)):
+        fn(st, *batch)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            fn(st, *batch)
+        torch.cuda.synchronize()
+        step_ms[label] = (time.perf_counter() - t0) / 3 * 1e3
+    names = [n for n, _ in state.model.named_parameters()]
+    checks = {"mining_1": launches["mining"] == 1,
+              "efm3_30": launches["efm3"] == 30,
+              "efm3_bwd_30": launches["efm3_bwd"] == 30,
+              "every_grad_nonzero": all(bool(g.abs().max() > 0)
+                                        for g in kept),
+              f"grad_rel_gap_max_{BACKBONE_GRAD_RTOL}": max(rel)
+              <= BACKBONE_GRAD_RTOL}
+    worst = max(range(len(rel)), key=rel.__getitem__)
+    return checks, {"launches": launches, "step_ms": step_ms,
+                    "grad_rel_gap_max": max(rel),
+                    "grad_rel_gap_at": names[worst],
+                    "default_vs_default_grad_rel_gap_max": max(floor)}
+
+
+def phase_int8(ctx):
+    """Int8 inference on the card (module docstring): ``extract_features
+    --int8`` with LightCNN9, LightCNN29 and EFMNet342, the hard-coded
+    LightCNN9 ladder, ``int8_embed`` serving, and a ``bwd_im2col`` train
+    step."""
+    import torch
+
+    report, checks, secs = {}, {}, {}
+    parts = [(name, lambda name=name: int8_extract_run(ctx, torch, name))
+             for name in INT8_RUNS]
+    parts += [("hardcoded_lightcnn9", lambda: int8_hardcoded(ctx, torch)),
+              ("serving", lambda: int8_serving(ctx, torch)),
+              ("bwd_im2col", lambda: int8_bwd_im2col(ctx, torch))]
+    for name, fn in parts:
+        t0 = time.perf_counter()
+        c, r = fn()
+        secs[name] = time.perf_counter() - t0
+        checks.update({f"{name}:{k}": v for k, v in c.items()})
+        report[name] = r
+    emit({"int8_embeddings_per_s": {n: report[n]["embeddings_per_s"]
+                                    for n in INT8_RUNS},
+          "int8_serving_frames_per_s": report["serving"]["frames_per_s"]})
+    return {"ok": all(checks.values()), "checks": checks,
+            "seconds_by_part": secs, **report}
+
+
+# ------------------------------------------------------------- landmarks
+
+# the ERT training of the landmarks phase: seeded synthetic faces (68
+# points, blobs at the five MTCNN points over noise), a training small
+# enough for the phase that leaves no degenerate node (whose infinite
+# threshold has no .dat encoding)
+LM_FACES, LM_SIDE = 30, 64
+LM_TRAIN = ["--cascades", "2", "--trees", "10", "--depth", "3",
+            "--feature-pool", "60", "--oversampling", "10", "--nu", "0.3"]
+# the detection frames: seeded noise at 64x64, where the seed-0 nets pass
+# tens of candidates at thresholds of 0.3 (at 250x250 they pass ~500 a
+# frame, whose near-ties at a threshold make card and CPU keep different
+# sets); card vs CPU on the host cascade: the DeviceCascade check's 1e-3
+LM_DETECT_IMAGES, LM_DETECT_HW, LM_TH = 4, (64, 64), 0.3
+LM_ATOL = 1e-3
+
+
+def landmark_faces(n: int, seed: int):
+    """``n`` grayscale faces of LM_SIDE px: a 68-point layout at a random
+    scale and place, gaussian blobs at its five MTCNN points over seeded
+    noise; returns (images [n, S, S], rects [n, 4], shapes [n, 68, 2])."""
+    import numpy as np
+
+    from improving_face_recognition_performance_using_triplet_loss_tpu_torch.detect.ert import (
+        five_points_from_68,
+    )
+
+    rng = np.random.default_rng(seed)
+    t = np.linspace(0, np.pi, 17)
+    canon = np.zeros((68, 2), np.float32)
+    canon[0:17] = np.stack([0.5 - 0.45 * np.cos(t), 0.35 + 0.55 * np.sin(t)],
+                           1)
+    canon[17:27] = [[0.2 + 0.1 * (i % 5) + 0.35 * (i // 5), 0.25]
+                    for i in range(10)]
+    canon[27:31] = np.stack([np.full(4, 0.5), np.linspace(0.3, 0.5, 4)], 1)
+    canon[31:36] = np.stack([np.linspace(0.42, 0.58, 5), np.full(5, 0.55)], 1)
+    th = np.linspace(0, 2 * np.pi, 6, endpoint=False)
+    for j, cx in ((36, 0.3), (42, 0.7)):
+        canon[j:j + 6] = np.stack([cx + 0.06 * np.cos(th),
+                                   0.35 + 0.03 * np.sin(th)], 1)
+    th2 = np.linspace(0, 2 * np.pi, 20, endpoint=False)
+    canon[48:68] = np.stack([0.5 + 0.12 * np.cos(th2),
+                             0.75 + 0.05 * np.sin(th2)], 1)
+    yy, xx = np.mgrid[0:LM_SIDE, 0:LM_SIDE].astype(np.float32)
+    images, rects, shapes = [], [], []
+    for _ in range(n):
+        scale = rng.uniform(0.65, 0.85) * (LM_SIDE - 8)
+        tx, ty = rng.uniform(2, LM_SIDE - scale - 2, 2)
+        shape = (canon + rng.normal(0, 0.01, canon.shape)) * scale + [tx, ty]
+        img = rng.uniform(0, 40, (LM_SIDE, LM_SIDE))
+        for kx, ky in five_points_from_68(shape.astype(np.float32)):
+            img += 255 * np.exp(-((xx - kx) ** 2 + (yy - ky) ** 2) / 18.0)
+        s2 = scale * rng.uniform(0.95, 1.2)
+        cx = tx + scale / 2 + rng.uniform(-0.1, 0.1) * scale
+        cy = ty + scale / 2 + rng.uniform(-0.1, 0.1) * scale
+        images.append(np.clip(img, 0, 255).astype(np.float32))
+        rects.append([cx - s2 / 2, cy - s2 / 2, cx + s2 / 2, cy + s2 / 2])
+        shapes.append(shape)
+    return (np.stack(images), np.asarray(rects, np.float32),
+            np.asarray(shapes, np.float32))
+
+
+def _paired(ref_boxes, side):
+    """``side``'s (boxes, landmarks) in the order of ``ref_boxes``: each
+    reference box takes the nearest box of ``side`` (largest coordinate
+    difference); unchanged when the counts differ or two reference boxes
+    take the same one."""
+    import numpy as np
+
+    boxes, landmarks = side
+    if boxes.shape != ref_boxes.shape or not len(boxes):
+        return side
+    dist = np.abs(ref_boxes[:, None, :4] - boxes[None, :, :4]).max(-1)
+    order = dist.argmin(1)
+    if len(set(order.tolist())) != len(order):
+        return side
+    return boxes[order], landmarks[order]
+
+
+def _lm_cli(*argv) -> subprocess.CompletedProcess:
+    """``python -m <port>.cli *argv`` in a new process."""
+    return subprocess.run([sys.executable, "-m", f"{PKG}.cli", *argv],
+                          cwd=ROOT, capture_output=True, text=True,
+                          timeout=300)
+
+
+def phase_landmarks(ctx):
+    """68-point landmarks on the card (module docstring): ``landmarks68
+    train`` / ``export-dat`` / ``import-dat --export-native`` through the
+    dispatcher, the ``.dat`` round trip byte-equal; ``NativeErt`` over the
+    port's export against ``predict``; ``mtcnn_ert_detect`` with the
+    seed-0 MTCNN nets on the card over seeded 64x64 frames (the host
+    cascade: no kernel of the port), held to a CPU rerun; ``landmarks68
+    detect`` over the cv2-written frames; the dispatcher's ``-h``."""
+    import cv2
+    import numpy as np
+
+    import torch
+
+    from improving_face_recognition_performance_using_triplet_loss_tpu_torch.detect import (
+        MTCNNDetector,
+        ShapePredictor,
+        mtcnn_ert_detect,
+    )
+    from improving_face_recognition_performance_using_triplet_loss_tpu_torch.detect.dlib_import import (
+        read_shape_predictor_dat,
+    )
+    from improving_face_recognition_performance_using_triplet_loss_tpu_torch.serve.native import (
+        NativeErt,
+    )
+
+    from improving_face_recognition_performance_using_triplet_loss_tpu_torch.cli.__main__ import (
+        main as dispatch,
+    )
+
+    checks, rep, secs = {}, {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        p = lambda name: os.path.join(tmp, name)  # noqa: E731
+        t0 = time.perf_counter()
+        images, rects, shapes = landmark_faces(LM_FACES, seed=0)
+        np.savez(p("ann.npz"), images=images, rects=rects, shapes=shapes)
+        dispatch(["landmarks68", "train", "--annotations", p("ann.npz"),
+                  "--out", p("sp.npz"), "--export-native",
+                  p("sp_native.npz"), *LM_TRAIN])
+        dispatch(["landmarks68", "export-dat", p("sp.npz"), "--out",
+                  p("sp.dat")])
+        dispatch(["landmarks68", "import-dat", p("sp.dat"), "--out",
+                  p("back.npz"), "--export-native", p("back_native.npz")])
+        dispatch(["landmarks68", "export-dat", p("back.npz"), "--out",
+                  p("back.dat")])
+        secs["cli"] = time.perf_counter() - t0
+        with open(p("sp.dat"), "rb") as f, open(p("back.dat"), "rb") as g:
+            dat = f.read()
+            checks["dat_round_trip_byte_equal"] = dat == g.read()
+        pred = ShapePredictor.load(p("sp.npz"))
+        back = read_shape_predictor_dat(p("sp.dat"))
+        checks["dat_predictor_equal"] = all(
+            np.array_equal(getattr(a, k), getattr(b, k))
+            for a, b in zip(pred.levels, back.levels)
+            for k in ("anchors", "deltas", "split_idx1", "split_idx2",
+                      "split_thresh", "leaf_values"))
+        with NativeErt(p("back_native.npz")) as ert:
+            err = max(float(np.abs(ert.predict(images[i], rects[i])
+                                   - pred.predict(images[i], rects[i])).max())
+                      for i in range(8))
+        checks["native_ert_matches_predict_1e-3"] = err <= 1e-3
+        rep["native_ert_max_err"] = err
+        rep["dat_bytes"] = len(dat)
+
+        t0 = time.perf_counter()
+        rng = np.random.default_rng(7)
+        paths, frames = [], []
+        for i in range(LM_DETECT_IMAGES):
+            frame = rng.integers(0, 256, LM_DETECT_HW + (3,), np.uint8)
+            paths.append(p(f"frame{i}.png"))
+            cv2.imwrite(paths[-1], frame)
+            frames.append(cv2.cvtColor(frame, cv2.COLOR_BGR2RGB))
+        th = (LM_TH,) * 3
+        full_f32()   # as landmarks68's main: the nets' convs in float32
+        for c in ctx["counters"].values():
+            c.reset()
+        card = [mtcnn_ert_detect(f, pred, MTCNNDetector(seed=0),
+                                 thresholds=th) for f in frames]
+        torch.cuda.synchronize()
+        launched = sum(c.count for c in ctx["counters"].values())
+        cpu_det = MTCNNDetector(seed=0, device="cpu")
+        cpu = [mtcnn_ert_detect(f, pred, cpu_det, thresholds=th)
+               for f in frames]
+        faces = sum(b.shape[0] for b, _ in card)
+        # the host cascade lists faces by score: near-equal scores may
+        # come out in another order on the two devices, so each CPU face
+        # is paired with the card face whose box is nearest
+        cpu = [_paired(a[0], b) for a, b in zip(card, cpu)]
+        checks["faces_found"] = faces > 0
+        checks["boxes_landmarks_atol_1e-3_vs_cpu"] = all(
+            a[0].shape == b[0].shape and np.allclose(a[0], b[0], atol=LM_ATOL)
+            and np.allclose(a[1], b[1], atol=LM_ATOL)
+            for a, b in zip(card, cpu))
+        checks["no_kernel_launched"] = launched == 0
+        dispatch(["landmarks68", "detect", "--predictor", p("sp.npz"),
+                  *paths, "--thresholds", *map(str, th), "--out",
+                  p("lmk.jsonl")])
+        rows = [json.loads(line) for line in open(p("lmk.jsonl"))]
+        checks["detect_cli_jsonl"] = (
+            len(rows) == LM_DETECT_IMAGES
+            and sum(len(row["boxes"]) for row in rows) == faces)
+        secs["detect"] = time.perf_counter() - t0
+        same = [(a, b) for a, b in zip(card, cpu)
+                if a[0].shape == b[0].shape]
+        rep["box_max_err"] = max((float(np.abs(a[0] - b[0]).max())
+                                  for a, b in same if a[0].size), default=0.0)
+        rep["landmark_max_err"] = max((float(np.abs(a[1] - b[1]).max())
+                                       for a, b in same if a[1].size),
+                                      default=0.0)
+        rep.update({"faces": faces, "kernel_launches": launched})
+    t0 = time.perf_counter()
+    helps = [_lm_cli("landmarks68", "-h"), _lm_cli("extract_features", "-h"),
+             _lm_cli("-h")]
+    checks["dispatcher_help_exits_0"] = all(r.returncode == 0 for r in helps)
+    checks["dispatcher_unported_exits_nonzero"] = (
+        _lm_cli("export_aot").returncode != 0)
+    secs["dispatcher"] = time.perf_counter() - t0
+    return {"ok": all(checks.values()), "checks": checks,
+            "seconds_by_part": secs, **rep}
+
+
 PHASES = {"build": phase_build, "nms": phase_nms, "stem": phase_stem,
           "efm3": phase_efm3, "mining": phase_mining, "front9": phase_front9,
           "stem2": phase_stem2, "slice": phase_slice, "head": phase_head,
           "extract": phase_extract, "serve9": phase_serve9,
-          "backbone": phase_backbone, "lfw": phase_lfw, "live": phase_live}
+          "backbone": phase_backbone, "lfw": phase_lfw, "live": phase_live,
+          "int8": phase_int8, "landmarks": phase_landmarks}
 
 
 def pytorch_defaults(torch) -> None:

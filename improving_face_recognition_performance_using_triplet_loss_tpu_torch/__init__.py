@@ -8,7 +8,9 @@ package, and mirrors that package's subpackages so every module has one
 JAX twin:
 
 - ``ops``     — MFM/EFM activations, distances, negative mining, box ops
-                and NMS, the space-to-depth stem; ``ops/cuda/`` holds the
+                and NMS, the space-to-depth stem, the int8 inference
+                route (``quantized``) and the im2col filter gradient
+                (``conv_backward``); ``ops/cuda/`` holds the
                 wrappers of the hand-written Hopper kernels whose CUDA C++
                 sources live in ``csrc/``.
 - ``models``  — MTCNN PNet/RNet/ONet, the 342-d EFM symbol ladder,
@@ -21,14 +23,14 @@ JAX twin:
                 synthetic data, LFW pairs; the cosine-similarity sink and
                 plots, the LFW verification protocol.
 - ``detect``  — the MTCNN detector: its host cascade, the batched
-                on-device cascade (``DeviceCascade``), dataset alignment.
+                on-device cascade (``DeviceCascade``), dataset alignment,
+                68-point ERT landmarks and the dlib ``.dat`` codec.
 - ``serve``   — weight export/import and the fused recognition pipelines.
-- ``utils``   — the MXNet ``.params`` reader / writer and mappings.
-- ``cli``     — ``serve_demo --streams N``, ``extract_features``,
-                ``train_backbone``, ``train_final``, ``pack_dataset``,
-                ``train_head``, ``eval_cos``, ``draw_cos``,
-                ``slice_dataset``, ``lfw_eval``, ``lfw_run``, ``align``,
-                ``import_params``.
+- ``utils``   — the MXNet ``.params`` reader / writer and mappings,
+                tracing, timers and FLOP counts.
+- ``cli``     — every command of the JAX package but ``export_aot`` and
+                ``train_began``, and the ``python -m <package>.cli
+                <command>`` dispatcher.
 
 Every entry point runs on ``cuda`` unless the caller passes
 ``device="cpu"``; with no CUDA present the default device raises.

@@ -1,4 +1,3 @@
-"""Command-line entry points of the port: ``serve_demo --streams N``,
-``extract_features``, ``train_backbone``, ``train_final``,
-``pack_dataset``, ``train_head``, ``eval_cos``, ``draw_cos`` and
-``slice_dataset``."""
+"""Command-line entry points of the port, one module per command of the
+JAX package (``python -m <package>.cli <command>`` dispatches them, see
+``__main__.py``); ``export_aot`` and ``train_began`` are not ported yet."""

@@ -10,8 +10,10 @@ export (``--export-dir``, JAX or port; its manifest names the model and
 the input) or a random init from seed 0. On the card LightCNN9 runs kernel
 B6 (square inputs, multiples of 4) or B4 (other even sizes), LightCNN29
 and EFMNet342 kernels B3 and B2. Runs on ``cuda`` unless ``--device cpu``
-is given. ``--data-parallel`` and ``--int8`` are not ported yet
-(ROADMAP.md A10, A13); ``--model deepface`` is not either (A12).
+is given. ``--int8`` runs every eligible conv as an exact int8 product
+(``ops/quantized.py``; LightCNN9's front then takes B4, never B6).
+``--data-parallel`` is not ported yet (ROADMAP.md A10); ``--model
+deepface`` is not either (A12).
 
     python -m improving_face_recognition_performance_using_triplet_loss_tpu_torch.cli.extract_features \\
         --synthetic --model lightcnn9 --out-dir /tmp/extract
@@ -62,7 +64,8 @@ def build_parser():
     p.add_argument("--data-parallel", action="store_true",
                    help="not ported yet (ROADMAP.md A10)")
     p.add_argument("--int8", action="store_true",
-                   help="not ported yet (ROADMAP.md A13)")
+                   help="run every eligible conv as an exact int8 product "
+                        "(per-channel weights, per-batch activations)")
     p.add_argument("--device", default=None,
                    help="torch device (default cuda; 'cpu' runs the plain "
                         "PyTorch path)")
@@ -73,9 +76,6 @@ def _check_args(args) -> None:
     if args.data_parallel:
         raise SystemExit("--data-parallel is not ported; data parallelism "
                          f"is queued in {_ROADMAP}, item 10")
-    if args.int8:
-        raise SystemExit("--int8 is not ported; int8 extraction is queued "
-                         f"in {_ROADMAP}, item 13")
 
 
 def _load_splits(args) -> dict:
@@ -121,14 +121,16 @@ def _build_model(args, sample: np.ndarray, device, log):
                          device=device)
 
 
-def _extract_split(model, images, labels, out_dir, split, batch_size, log):
+def _extract_split(model, images, labels, out_dir, split, batch_size, log,
+                   int8=False):
     from ..data.feature_store import (save_feature_store, write_feature_csv,
                                       write_labels_csv)
     from ..extract import extract_features
 
     tic = time.perf_counter()
     feats, labels, acc, preds = extract_features(model, images, labels,
-                                                 batch_size=batch_size)
+                                                 batch_size=batch_size,
+                                                 int8=int8)
     seconds = time.perf_counter() - tic
     fcsv = os.path.join(out_dir, f"feature_vector_{split}.csv")
     lcsv = os.path.join(out_dir, f"label_{split}.csv")
@@ -149,9 +151,11 @@ def main(argv=None):
     args = build_parser().parse_args(argv)
     _check_args(args)
     from ..device import full_f32, resolve_device
+    from ..utils import enable_compilation_cache
     from ._common import log_config, setup_logging
 
     full_f32()
+    enable_compilation_cache()   # a no-op: the kernels' build dir caches
     device = resolve_device(args.device)
     log = setup_logging(os.path.join(args.out_dir, "log"), "extract")
     log_config(log, args)
@@ -162,7 +166,7 @@ def main(argv=None):
                          "--synthetic")
     model = _build_model(args, next(iter(splits.values()))[0], device, log)
     return {split: _extract_split(model, images, labels, args.out_dir, split,
-                                  args.batch_size, log)
+                                  args.batch_size, log, int8=args.int8)
             for split, (images, labels) in splits.items()}
 
 

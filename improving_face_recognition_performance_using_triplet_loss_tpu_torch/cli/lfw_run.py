@@ -157,9 +157,11 @@ def main(argv=None):
     from ..models import model_by_name
     from ..serve.convert import from_jax_params
     from ..serve.export import load_exported_params
+    from ..utils import enable_compilation_cache
     from ._common import log_config, setup_logging
 
     full_f32()
+    enable_compilation_cache()   # a no-op: the kernels' build dir caches
     device = resolve_device(args.device)
     log = setup_logging(None, "lfw_run")
     log_config(log, args)

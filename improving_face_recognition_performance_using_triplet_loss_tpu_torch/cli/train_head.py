@@ -7,8 +7,10 @@ pos/neg cosine similarities appended to ``cosine_similarity.csv`` every
 batch, a checkpoint per epoch (``--resume`` continues), and an export
 (``weights.npz`` + ``manifest.json``) that the JAX package loads.
 ``--mining semi_hard_fused`` mines with kernel B1 on the card. Runs on
-``cuda`` unless ``--device cpu`` is given. ``--data-parallel`` and
-``--export-projector`` are not ported yet (ROADMAP.md A10, A13).
+``cuda`` unless ``--device cpu`` is given. ``--export-projector`` writes
+the projector TSVs of the features before and after the head
+(``eval/projector.py``). ``--data-parallel`` is not ported yet (ROADMAP.md
+A10).
 
     python -m improving_face_recognition_performance_using_triplet_loss_tpu_torch.cli.train_head \\
         --synthetic --epochs 3 --batch-size 256 --out-dir /tmp/head
@@ -48,7 +50,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="FaceNet-style triplet on L2-normalized head outputs "
                         "(reference uses raw outputs)")
     p.add_argument("--export-projector", action="store_true",
-                   help="not ported yet (ROADMAP.md A13)")
+                   help="write the embedding-projector TSVs of the "
+                        "features before and after the trained head")
     p.add_argument("--data-parallel", action="store_true",
                    help="not ported yet (ROADMAP.md A10)")
     p.add_argument("--ema-decay", type=float, default=0.0,
@@ -82,9 +85,6 @@ def _check_args(args) -> None:
     if args.data_parallel:
         raise SystemExit("--data-parallel is not ported; data parallelism "
                          f"is queued in {_ROADMAP}, item 10")
-    if args.export_projector:
-        raise SystemExit("--export-projector is not ported; the projector "
-                         f"export is queued in {_ROADMAP}, item 13")
 
 
 def main(argv=None):
@@ -148,6 +148,18 @@ def main(argv=None):
             eval_batches=eval_batches, sink=sink, checkpointer=ckpt,
             start_epoch=start_epoch, preemption_guard=guard)
     sink.flush()
+
+    if args.export_projector:
+        from ..eval.projector import export_projector
+
+        with torch.no_grad():
+            head_out = state.model(torch.from_numpy(
+                np.ascontiguousarray(feats, np.float32)).to(device))
+        export_projector(feats, labels,
+                         os.path.join(args.out_dir, "projector_before"))
+        export_projector(head_out.cpu().numpy(), labels,
+                         os.path.join(args.out_dir, "projector_after"))
+        log.info("projector TSVs written (before/after triplet)")
 
     head = state.model
     if args.ema_decay > 0:

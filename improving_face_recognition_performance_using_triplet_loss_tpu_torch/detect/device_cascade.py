@@ -59,8 +59,9 @@ def crop_resize_boxes(frames: torch.Tensor, boxes: torch.Tensor,
     h, w = frames.shape[1], frames.shape[2]
     x1, y1, x2, y2 = (boxes[..., i] for i in range(4))
     # size / extent as a tensor division: a Python scalar over a tensor
-    # would run as a reciprocal and a multiply, off by an ulp
-    size_t = _f32(float(size), boxes.device)
+    # would run as a reciprocal and a multiply, off by an ulp; the filled
+    # numerator is made on the device, with no host-to-device copy
+    size_t = torch.full_like(y1, float(size))
     sy = size_t / (y2 - y1 + 1.0)
     sx = size_t / (x2 - x1 + 1.0)
     wy = compute_weight_mat(h, size, sy, -(y1 - 1.0) * sy)   # [F, N, H, S]
@@ -164,11 +165,10 @@ def make_device_cascade(pnet, rnet, onet, h: int, w: int, *,
         mask3 = nms_mask_batched(boxes3[..., :5].contiguous(), 0.7, "Min")
         out_boxes = _masked(boxes3, boxes3[..., 4],
                             mask3 & torch.isfinite(boxes3[..., 4]))
-        zero = torch.zeros((), dtype=torch.int32, device=dev)
         counts = torch.stack([
             s1_dropped,
-            torch.maximum(n1 - stage2_cap, zero),
-            torch.maximum(n2 - out_cap, zero),
+            torch.clamp(n1 - stage2_cap, min=0),
+            torch.clamp(n2 - out_cap, min=0),
             torch.isfinite(out_boxes[..., 4]).sum(-1, dtype=torch.int32),
         ], dim=-1)
         return out_boxes, pts, counts

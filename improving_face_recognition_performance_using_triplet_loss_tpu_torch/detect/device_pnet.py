@@ -11,7 +11,12 @@ and is ``vmap``-ed; here the frame axis is written out.
 The resize is ``jax.image.resize(..., "linear")``: separable weight
 matrices from the antialiased triangle kernel (``compute_weight_mat``, a
 port of the private ``jax._src.image.scale.compute_weight_mat``, which the
-cascade's crop-resize uses too).
+cascade's crop-resize uses too). The jitted JAX stage folds its scalars
+into the program as constants; here every tensor that depends only on the
+frame shape and the pyramid scale (the resize matrices) is built once
+with the stage, and the per-call work takes Python scalars, which reach a
+kernel as launch arguments, so a call makes no host-to-device copy but
+the frames' own.
 """
 
 from __future__ import annotations
@@ -40,18 +45,18 @@ def compute_weight_mat(input_size: int, output_size: int, scale, translation,
     ``scale`` and ``translation`` are float32 tensors of one shape (a batch
     of warps) or Python floats. As in JAX, a Python scale is inverted in
     double precision and rounded once; a tensor scale is inverted in
-    float32. Output columns whose sample lies outside the input get zero
-    weight, so out-of-range samples read zeros."""
+    float32 (``reciprocal``, an IEEE division like JAX's ``1 / scale``).
+    Output columns whose sample lies outside the input get zero weight, so
+    out-of-range samples read zeros. A tensor scale creates no scalar
+    tensor: its constants enter as Python scalars."""
     if isinstance(scale, torch.Tensor):
         device = scale.device
-        inv_scale = _f32(1.0, device) / scale
-        translation = _f32(translation, device)
+        inv_scale = torch.reciprocal(scale)
         shift = translation * inv_scale
     else:
         inv_scale = _f32(1.0 / scale, device)
         shift = _f32(translation * (1.0 / scale), device)
-    one = _f32(1.0, device)
-    kernel_scale = torch.maximum(inv_scale, one)
+    kernel_scale = torch.clamp(inv_scale, min=1.0)
     out_i = torch.arange(output_size, dtype=torch.float32, device=device)
     sample_f = ((out_i + 0.5) * inv_scale[..., None] - shift[..., None]
                 - 0.5)                                            # [..., out]
@@ -62,22 +67,34 @@ def compute_weight_mat(input_size: int, output_size: int, scale, translation,
     total = weights.sum(dim=-2, keepdim=True)
     weights = torch.where(
         torch.abs(total) > 1000.0 * _F32_EPS,
-        weights / torch.where(total != 0, total, one), 0.0)
+        weights / torch.where(total != 0, total, 1.0), 0.0)
     inside = (sample_f >= -0.5) & (sample_f <= input_size - 0.5)
     return torch.where(inside[..., None, :], weights, 0.0)
 
 
-def resize_linear(images: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
+def resize_weights(h: int, w: int, out_h: int, out_w: int, device=None):
+    """The ``(wy [h, out_h], wx [w, out_w])`` matrices of
+    :func:`resize_linear`; None for an axis whose size does not change."""
+    wy = (compute_weight_mat(h, out_h, out_h / h, 0.0, device)
+          if out_h != h else None)
+    wx = (compute_weight_mat(w, out_w, out_w / w, 0.0, device)
+          if out_w != w else None)
+    return wy, wx
+
+
+def resize_linear(images: torch.Tensor, out_h: int, out_w: int,
+                  weights=None) -> torch.Tensor:
     """``jax.image.resize(img, (out_h, out_w, C), "linear")`` for a
     ``[F, H, W, C]`` batch. An axis whose size does not change is left
-    alone, as in JAX."""
+    alone, as in JAX. ``weights`` is :func:`resize_weights`' pair for these
+    shapes, built once by a caller that resizes many batches."""
     h, w = images.shape[1], images.shape[2]
+    wy, wx = weights if weights is not None else resize_weights(
+        h, w, out_h, out_w, images.device)
     out = images
-    if out_h != h:
-        wy = compute_weight_mat(h, out_h, out_h / h, 0.0, images.device)
+    if wy is not None:
         out = torch.einsum("fhwc,hy->fywc", out, wy)
-    if out_w != w:
-        wx = compute_weight_mat(w, out_w, out_w / w, 0.0, images.device)
+    if wx is not None:
         out = torch.einsum("fywc,wx->fyxc", out, wx)
     return out
 
@@ -107,6 +124,11 @@ def make_device_stage1(pnet, h: int, w: int, *, minsize: int = 20,
     dev = resolve_device(device)
     scales = pyramid_scales(h, w, minsize, factor)
     neg_inf = float("-inf")
+    # per scale: its size and resize matrices, built once with the stage
+    levels = []
+    for scale in scales:
+        hs, ws = math.ceil(h * scale), math.ceil(w * scale)
+        levels.append((scale, hs, ws, resize_weights(h, w, hs, ws, dev)))
 
     @torch.inference_mode()
     def stage1(frames: torch.Tensor):
@@ -114,10 +136,8 @@ def make_device_stage1(pnet, h: int, w: int, *, minsize: int = 20,
         nf = frames.shape[0]
         per_scale = []
         dropped = torch.zeros((nf,), dtype=torch.int32, device=dev)
-        for scale in scales:
-            hs = math.ceil(h * scale)
-            ws = math.ceil(w * scale)
-            im = resize_linear(frames, hs, ws)
+        for scale, hs, ws, weights in levels:
+            im = resize_linear(frames, hs, ws, weights)
             im = (im - 127.5) * 0.0078125
             # TF-caffe orientation (detect_face.py:308-312)
             prob, reg = pnet(im.transpose(1, 2))

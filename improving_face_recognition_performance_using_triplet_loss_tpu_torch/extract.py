@@ -6,43 +6,48 @@ mode without autograd, its features are L2-normalized and its top-1 ID
 predictions taken on the device, and the host only concatenates the
 results. uint8 batches (the streaming stores) are normalized on the device,
 as ``x * float32(1/255)``, the form the JAX package's jitted ``x / 255.0``
-takes under XLA. Sharded extraction (``data_parallel``) and int8 convs are
-not ported yet (ROADMAP.md queue A, items 10 and 13).
+takes under XLA. ``int8=True`` runs every eligible conv on the exact int8
+route of ``ops/quantized.py`` (one activation scale over the whole batch,
+as the JAX package's jitted batch computes it). Sharded extraction
+(``data_parallel``) is not ported yet (ROADMAP.md queue A, item 10).
 """
 
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 import torch
 
+from .models.mtcnn import conv_route
 from .ops.distances import l2_normalize
+from .ops.quantized import Int8ConvRoute
 
 # XLA turns the jitted division by 255 into a product with this float32
 _INV_255 = float(np.float32(1.0) / np.float32(255.0))
 
 
-def _check_modes(data_parallel: bool, int8: bool) -> None:
+def _check_modes(data_parallel: bool) -> None:
     if data_parallel:
         raise NotImplementedError("data-parallel extraction is not ported; "
                                   "queued in ROADMAP.md queue A, item 10")
-    if int8:
-        raise NotImplementedError("int8 extraction is not ported; queued in "
-                                  "ROADMAP.md queue A, item 13")
 
 
 def make_extract_fn(model: torch.nn.Module, *, normalize: bool = True,
                     int8: bool = False):
     """``fn(images) -> (logits, features)`` for a batch on the model's
     device: uint8 images scaled to [0, 1], features L2-normalized unless
-    ``normalize=False``."""
-    _check_modes(False, int8)
+    ``normalize=False``; ``int8`` runs the forward on the int8 conv route
+    (``ops.quantized.Int8ConvRoute``, kept across batches)."""
     model.eval()
+    route = Int8ConvRoute() if int8 else None
 
     @torch.no_grad()
     def fn(images: torch.Tensor):
         if images.dtype == torch.uint8:
             images = images.float() * _INV_255
-        logits, feat = model(images)
+        with (conv_route(route) if int8 else contextlib.nullcontext()):
+            logits, feat = model(images)
         if normalize:
             feat = l2_normalize(feat)
         return logits, feat
@@ -70,8 +75,8 @@ def extract_features(
     ``images`` may be a uint8 memmap (the mmap store): rows are sliced per
     batch and normalized on the device, so the float dataset is never
     materialized in host memory."""
-    _check_modes(data_parallel, int8)
-    fn = make_extract_fn(model, normalize=normalize)
+    _check_modes(data_parallel)
+    fn = make_extract_fn(model, normalize=normalize, int8=int8)
     device = next(model.parameters()).device
     n = images.shape[0]
     feats_out, preds_out = [], []

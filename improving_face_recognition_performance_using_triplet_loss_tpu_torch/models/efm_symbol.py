@@ -64,7 +64,8 @@ class EFMNet342(FlaxLayers):
             x = efm3(conv_nhwc(x, c1))
             x = efm3(conv_nhwc(x, c3))
             x = _maxpool2(x)
-        return efm3(self.fc1(x.reshape(x.shape[0], -1)))
+        x = x.reshape(x.shape[0], -1).to(self.fc1.weight.dtype)
+        return efm3(self.fc1(x))
 
     def classify(self, feat: torch.Tensor):
         logits = self.fc2(self.drop1(feat))

@@ -44,7 +44,7 @@ from ..ops.cuda.front9 import front9_chain, pack_front9_weights
 from ..ops.cuda.stem import stem2_conv, stem_conv_maxout_pool
 from ..ops.mfm import efm3, mfm2
 from ..ops.s2d_stem import reference_stem
-from .mtcnn import conv_nhwc
+from .mtcnn import active_conv_route, conv_nhwc
 
 # flax's lecun_normal: a truncated normal on [-2, 2] rescaled to unit variance
 _TRUNC_STD = 0.87962566103423978
@@ -410,7 +410,10 @@ class LightCNN29(FlaxLayers):
         x = self.group1(x.to(self.fc1.weight.dtype))
         for res, conv in zip(self.res, self.convs):
             x = _maxpool2(conv(res(x)))
-        return efm3(self.fc1(x.reshape(x.shape[0], -1)))
+        # a conv route may hand back another dtype: fc1 casts its input
+        # to its own, as a flax Dense does
+        x = x.reshape(x.shape[0], -1).to(self.fc1.weight.dtype)
+        return efm3(self.fc1(x))
 
     def classify(self, feat: torch.Tensor):
         logits = self.fc2(self.fc2_drop(feat))
@@ -447,19 +450,22 @@ CONVS9 = [("conv2a", 48, 96, 1), ("conv2", 48, 192, 3),
 
 
 def lightcnn9_front_route(h: int, w: int, channels: int = 1, *, cuda: bool,
-                          inference: bool) -> str:
+                          inference: bool, rerouted=()) -> str:
     """Which path LightCNN9's conv1..pool2 takes for a ``[B, h, w,
     channels]`` input: ``"front9"`` (kernel B6) where the JAX package's
     ``front9_chain_pallas`` takes the input (H == W, a multiple of 4), else
     ``"stem2"`` (kernel B4 for conv1..conv2a) where ``stem2_conv_pallas`` /
     ``FusedStem`` take it (H and W even), else ``"plain"``. Only a
     one-channel CUDA input at inference (eval mode, no autograd) goes to a
-    kernel; the CPU and training run the plain layers."""
+    kernel; the CPU and training run the plain layers. ``rerouted`` names
+    the convs an active conv route takes over (the int8 route takes conv2,
+    K = 432): a kernel that fuses one of them is not taken (B6 fuses
+    conv2a and conv2, B4 conv2a)."""
     if not (cuda and inference) or channels != 1:
         return "plain"
-    if h == w and h % 4 == 0:
+    if h == w and h % 4 == 0 and not {"conv2a", "conv2"} & set(rerouted):
         return "front9"
-    if h % 2 == 0 and w % 2 == 0:
+    if h % 2 == 0 and w % 2 == 0 and "conv2a" not in rerouted:
         return "stem2"
     return "plain"
 
@@ -511,9 +517,14 @@ class LightCNN9(FlaxLayers):
 
     def _front(self, x: torch.Tensor) -> torch.Tensor:
         """conv1..pool2, through B6, B4 or the plain layers."""
+        conv_rt = active_conv_route()
+        rerouted = () if conv_rt is None else [
+            name for name in ("conv2a", "conv2")
+            if conv_rt.reroutes(getattr(self, name))]
         route = lightcnn9_front_route(
             x.shape[1], x.shape[2], x.shape[3], cuda=x.is_cuda,
-            inference=not self.training and not torch.is_grad_enabled())
+            inference=not self.training and not torch.is_grad_enabled(),
+            rerouted=rerouted)
         if route == "front9":
             return front9_chain(x, self.front_params(),
                                 self._front9_weights(x.dtype))
@@ -532,7 +543,8 @@ class LightCNN9(FlaxLayers):
         for name in ("conv4a", "conv4", "conv5a", "conv5"):
             x = mfm2(conv_nhwc(x, getattr(self, name)))
         x = _maxpool2(x)
-        return mfm2(self.fc1(x.reshape(x.shape[0], -1)))
+        x = x.reshape(x.shape[0], -1).to(self.fc1.weight.dtype)
+        return mfm2(self.fc1(x))
 
     def classify(self, feat: torch.Tensor):
         logits = self.fc2(self.fc2_drop(feat))

@@ -15,6 +15,8 @@ permutation.
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import math
 from typing import Any
 
@@ -60,11 +62,44 @@ class PReLU(nn.Module):
         return x.clamp(min=0) + self.alpha * x.clamp(max=0)
 
 
-def conv_nhwc(x: torch.Tensor, conv: nn.Conv2d) -> torch.Tensor:
+# the conv route of the current context: flax's ``intercept_methods`` over
+# ``nn.Conv``, for the port's nets, whose every conv but the fused stems runs
+# through conv_nhwc (ops/quantized.py's int8 route, ops/conv_backward.py's
+# im2col filter gradient)
+_CONV_ROUTE: contextvars.ContextVar = contextvars.ContextVar(
+    "conv_route", default=None)
+
+
+@contextlib.contextmanager
+def conv_route(route):
+    """Run every :func:`conv_nhwc` of the block through ``route(x, conv)``
+    (``route`` calls :func:`plain_conv_nhwc` for the convs it leaves
+    alone)."""
+    token = _CONV_ROUTE.set(route)
+    try:
+        yield route
+    finally:
+        _CONV_ROUTE.reset(token)
+
+
+def active_conv_route():
+    """The route :func:`conv_route` set, or None."""
+    return _CONV_ROUTE.get()
+
+
+def plain_conv_nhwc(x: torch.Tensor, conv: nn.Conv2d) -> torch.Tensor:
     """``conv`` on a ``[B, H, W, C]`` tensor, returning ``[B, H', W', C']``.
     The NCHW view of a channel-last tensor is channels-last in memory, so
     the convolution runs there without a copy."""
     return conv(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+
+
+def conv_nhwc(x: torch.Tensor, conv: nn.Conv2d) -> torch.Tensor:
+    """:func:`plain_conv_nhwc`, or the active :func:`conv_route`."""
+    route = _CONV_ROUTE.get()
+    if route is not None:
+        return route(x, conv)
+    return plain_conv_nhwc(x, conv)
 
 
 def maxpool_nhwc(x: torch.Tensor, k: int, s: int, padding: str) -> torch.Tensor:

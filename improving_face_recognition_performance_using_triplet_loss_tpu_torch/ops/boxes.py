@@ -72,9 +72,9 @@ def decode_pnet_topk(imap: torch.Tensor, reg: torch.Tensor, scale: float,
     imap_t = imap.transpose(-1, -2)                     # [..., W', H']
     regs_t = reg.transpose(-2, -3)                      # [..., W', H', 4]
     flat = imap_t.reshape(*imap_t.shape[:-2], -1)
-    neg_inf = torch.tensor(float("-inf"), dtype=flat.dtype, device=flat.device)
-    th = torch.tensor(threshold, dtype=flat.dtype, device=flat.device)
-    masked = torch.where(flat >= th, flat, neg_inf)
+    # Python scalars meet a float32 tensor as float32 launch arguments: no
+    # scalar tensor, no host-to-device copy
+    masked = torch.where(flat >= threshold, flat, float("-inf"))
     k = min(k, flat.shape[-1])
     scores, idx = stable_topk(masked, k)
     w_dim = imap_t.shape[-1]
@@ -85,8 +85,7 @@ def decode_pnet_topk(imap: torch.Tensor, reg: torch.Tensor, scale: float,
     # the JAX stage runs under jit, where XLA turns the division by the
     # constant scale into a multiply by its float32 reciprocal; the trunc
     # below sees that product, so the port forms the same one
-    inv = torch.tensor(np.float32(1.0) / np.float32(scale),
-                       dtype=torch.float32, device=flat.device)
+    inv = float(np.float32(1.0) / np.float32(scale))
     q1y = torch.trunc((stride * ys + 1.0) * inv)
     q1x = torch.trunc((stride * xs + 1.0) * inv)
     q2y = torch.trunc((stride * ys + cellsize) * inv)

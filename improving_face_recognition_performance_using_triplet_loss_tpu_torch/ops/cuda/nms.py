@@ -58,21 +58,19 @@ def nms_mask_plain(boxes: torch.Tensor, threshold: float,
     x1, y1, x2, y2 = (F.pad(b[..., i], (0, pad)) for i in range(4))
     sc = F.pad(b[..., 4], (0, pad), value=float("-inf"))
     area = (x2 - x1 + 1) * (y2 - y1 + 1)
-    zero = torch.zeros((), dtype=torch.float32, device=b.device)
     xx1 = torch.maximum(x1[:, :, None], x1[:, None, :])
     yy1 = torch.maximum(y1[:, :, None], y1[:, None, :])
     xx2 = torch.minimum(x2[:, :, None], x2[:, None, :])
     yy2 = torch.minimum(y2[:, :, None], y2[:, None, :])
-    inter = (torch.maximum(zero, xx2 - xx1 + 1)
-             * torch.maximum(zero, yy2 - yy1 + 1))
+    inter = (torch.clamp(xx2 - xx1 + 1, min=0.0)
+             * torch.clamp(yy2 - yy1 + 1, min=0.0))
     if method == "Min":
         o = inter / torch.minimum(area[:, :, None], area[:, None, :])
     else:
         o = inter / (area[:, :, None] + area[:, None, :] - inter)
     idx = torch.arange(nb * bsz, device=b.device)
-    th = torch.tensor(threshold, dtype=torch.float32, device=b.device)
     # suppr[s, i, j]: sorted row i, ranked before j, suppresses j
-    suppr = (o > th) & (idx[:, None] < idx[None, :]) & torch.isfinite(o)
+    suppr = (o > threshold) & (idx[:, None] < idx[None, :]) & torch.isfinite(o)
     valid = torch.isfinite(sc)
     keep = torch.zeros_like(valid)
     for t in range(nb):

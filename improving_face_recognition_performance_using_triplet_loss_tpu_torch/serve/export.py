@@ -6,7 +6,9 @@ numpy alone: keys are the flax tree paths joined by ``/`` under
 C-order, and the manifest names the model, feature dim and input contract.
 An export of either package loads in the other (``serve.convert``).
 ``export_mtcnn`` writes the detector's three nets as the flat npz that
-the native cascade under ``cpp/`` reads.
+the native cascade under ``cpp/`` reads, ``export_ert`` an ERT shape
+predictor as the flat npz of the native regressor (``serve.native
+.NativeErt``).
 """
 
 from __future__ import annotations
@@ -96,6 +98,32 @@ def export_mtcnn(path: str, pnet_params: Any, rnet_params: Any,
             for name, arr in entries.items():
                 flat[f"{net}/{layer}/{name}"] = np.ascontiguousarray(
                     np.asarray(arr, np.float32))
+    if not path.endswith(".npz"):
+        path += ".npz"  # np.savez appends it anyway; return the real path
+    if os.path.dirname(path):
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+    np.savez(path, **flat)
+    return path
+
+
+def export_ert(path: str, predictor: Any) -> str:
+    """Write an ERT shape predictor (detect/ert.py::ShapePredictor) to the
+    flat .npz the native regressor reads (cpp/include/facejax/ert.hpp).
+
+    Same arrays as ShapePredictor.save but uncompressed (the native reader
+    is ZIP_STORED-only) and all-float32 (indices are small integers, exactly
+    representable). Reference parity: the dlib shape_predictor .dat the C++
+    runtime deserializes (MTCNN.hpp:1326-1421).
+    """
+    flat: dict[str, np.ndarray] = {
+        "mean_shape": np.asarray(predictor.mean_shape, np.float32),
+        "num_levels": np.asarray([len(predictor.levels)], np.float32),
+    }
+    for t, lv in enumerate(predictor.levels):
+        for name in ("anchors", "deltas", "split_idx1", "split_idx2",
+                     "split_thresh", "leaf_values"):
+            flat[f"level{t}/{name}"] = np.ascontiguousarray(
+                np.asarray(getattr(lv, name), np.float32))
     if not path.endswith(".npz"):
         path += ".npz"  # np.savez appends it anyway; return the real path
     if os.path.dirname(path):

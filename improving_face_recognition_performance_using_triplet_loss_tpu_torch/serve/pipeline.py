@@ -7,8 +7,11 @@ L2 normalization and the cosine gallery argmax, for a batch of frames at
 once. The JAX package compiles this into one XLA program and ``vmap``-s it
 over streams; here each stage runs eagerly over the frame axis, and the
 kernels of the path (NMS, the fused stem, EFM3) launch once per stage for
-all frames. The multi-face and mesh-sharded pipelines are not ported yet
-(ROADMAP.md, queue A).
+all frames. ``int8_embed=True`` runs the embedding net (never MTCNN) on
+the int8 conv route of ``ops/quantized.py`` with one activation scale a
+frame: the JAX package embeds each frame's crops (one, or ``max_faces``
+with the empty slots) in its own call under ``vmap``. The mesh-sharded
+pipelines are not ported yet (ROADMAP.md, queue A).
 """
 
 from __future__ import annotations
@@ -18,14 +21,14 @@ import torch
 
 from ..detect.device_cascade import crop_resize_boxes, make_device_cascade
 from ..device import resolve_device
+from ..models.mtcnn import conv_route
 from ..ops.boxes import stable_topk
 from ..ops.distances import (gallery_sims, l2_normalize, l2_normalize_np,
                              narrow_gallery_np)
+from ..ops.quantized import Int8ConvRoute
 
 _SHARDED = ("the mesh-sharded pipelines are not ported; queued in "
             "ROADMAP.md queue A, item 10")
-_INT8_EMBED = ("the int8 embedding (ops/quantized.py) is not ported; queued "
-               "in ROADMAP.md queue A, item 13")
 # the device cascade's output capacity: the most faces a frame can yield
 MAX_FACES = 64
 
@@ -43,8 +46,27 @@ def _match_gallery(sims: torch.Tensor, rows=None):
     return idx, sim, sim > float("-inf")
 
 
+def _embed_fn(embed_model, int8_embed: bool):
+    """``fn(x [F*K, S, S, 1], frames=F) -> features``: the embedding net,
+    on the int8 conv route with one activation scale a frame when
+    ``int8_embed`` (a route for each frame count, kept across calls)."""
+    routes: dict[int, Int8ConvRoute] = {}
+
+    def embed(x: torch.Tensor, frames: int):
+        if not int8_embed:
+            return embed_model(x)[1]
+        if frames not in routes:
+            routes[frames] = Int8ConvRoute(groups=frames)
+        route = routes[frames]
+        with conv_route(route):
+            return embed_model(x)[1]
+
+    return embed
+
+
 def _make_detect_embed(detector, embed_model, *, frame_h, frame_w,
-                       embed_size, margin, minsize, thresholds, device):
+                       embed_size, margin, minsize, thresholds, device,
+                       int8_embed=False):
     """The gallery-independent front: cascade -> largest-centered face ->
     margin crop -> grayscale resize -> embed -> L2 norm, over a batch of
     frames. Returns fn(frames [F, H, W, 3]) -> (found [F], box [F, 4],
@@ -52,6 +74,7 @@ def _make_detect_embed(detector, embed_model, *, frame_h, frame_w,
     cascade = make_device_cascade(
         detector.pnet, detector.rnet, detector.onet, frame_h, frame_w,
         minsize=minsize, thresholds=thresholds, device=device)
+    embed = _embed_fn(embed_model, int8_embed)
     half = margin / 2
 
     def detect_embed(frames: torch.Tensor):
@@ -76,8 +99,7 @@ def _make_detect_embed(detector, embed_model, *, frame_h, frame_w,
         ], dim=-1)
         crop = crop_resize_boxes(frames, box[:, None], embed_size)[:, 0]
         gray = crop.mean(dim=-1, keepdim=True) / 255.0
-        _, feat = embed_model(gray)
-        emb = l2_normalize(feat)
+        emb = l2_normalize(embed(gray, frames.shape[0]))
         cap_dropped = counts[:, 0] + counts[:, 1] + counts[:, 2]
         return found, box, sel[:, 4], emb, cap_dropped
 
@@ -115,13 +137,11 @@ def make_multistream_pipeline(detector, embed_model, gallery=None, *,
             sim_threshold=sim_threshold, max_faces=max_faces,
             int8_embed=int8_embed, dynamic_gallery=dynamic_gallery,
             device=device)
-    if int8_embed:
-        raise NotImplementedError(_INT8_EMBED)
     dev = resolve_device(device)
     detect_embed = _make_detect_embed(
         detector, embed_model, frame_h=frame_h, frame_w=frame_w,
         embed_size=embed_size, margin=margin, minsize=minsize,
-        thresholds=thresholds, device=dev)
+        thresholds=thresholds, device=dev, int8_embed=int8_embed)
     baked = None if dynamic_gallery else l2_normalize(
         torch.as_tensor(np.asarray(gallery, np.float32), device=dev))
 
@@ -197,9 +217,8 @@ def _make_multiface_batched(detector, embed_model, gallery=None, *,
         raise ValueError(
             f"max_faces ({max_faces}) exceeds the device cascade's output "
             f"capacity ({MAX_FACES})")
-    if int8_embed:
-        raise NotImplementedError(_INT8_EMBED)
     dev = resolve_device(device)
+    embed = _embed_fn(embed_model, int8_embed)
     cascade = make_device_cascade(
         detector.pnet, detector.rnet, detector.onet, frame_h, frame_w,
         minsize=minsize, thresholds=thresholds, device=dev)
@@ -230,8 +249,7 @@ def _make_multiface_batched(detector, embed_model, gallery=None, *,
         safe = torch.where(torch.isfinite(bxs), bxs, 0.0)
         crops = crop_resize_boxes(frames, safe, embed_size)  # [F, K, S, S, 3]
         gray = crops.mean(dim=-1, keepdim=True) / 255.0
-        _, feats = embed_model(gray.reshape(nf * k, embed_size,
-                                            embed_size, 1))
+        feats = embed(gray.reshape(nf * k, embed_size, embed_size, 1), nf)
         embs = l2_normalize(feats).reshape(nf, k, -1)       # [F, K, D]
         idx, sim, real = _match_gallery(gallery_sims(embs, gallery_n), rows)
         matched = found & real & (sim >= sim_threshold)

@@ -17,7 +17,8 @@ the JAX package. ``semi_hard_fused`` mines with kernel B1
 (``ops/cuda/mining.py``); ``semi_hard`` and ``hard`` materialize the
 ``[B, 2B]`` distances; ``random`` draws from the step's generator. Data and
 class parallelism (the JAX ``axis_name`` / ``class_axis_name``) are
-ROADMAP.md A10; the im2col filter gradient (``bwd_im2col``) is A13.
+ROADMAP.md A10. ``bwd_im2col=True`` routes every eligible conv through
+``ops.conv_backward.conv2d_fg_im2col`` (dW as an explicit im2col matmul).
 """
 
 from __future__ import annotations
@@ -34,6 +35,7 @@ from ..losses.center import center_loss
 from ..losses.triplet import joint_id_triplet_loss, triplet_loss
 from ..models.lightcnn import Dropout
 from ..ops import mining
+from ..ops.conv_backward import conv_interceptor_im2col_bwd
 from ..ops.cuda.mining import semi_hard_mining
 from ..ops.distances import l2_normalize, pairwise_sq_l2, rowwise_cosine
 from .state import TrainState, step_generator
@@ -173,15 +175,11 @@ def make_head_eval_step(
 # ---------------------------------------------------------------- backbone
 
 
-def _check_unported(axis_name, class_axis_name, bwd_im2col) -> None:
+def _check_unported(axis_name, class_axis_name) -> None:
     if axis_name is not None or class_axis_name is not None:
         raise NotImplementedError(
             "data and class parallelism (axis_name / class_axis_name) are "
             f"not ported; queued in {_ROADMAP}, item 10")
-    if bwd_im2col:
-        raise NotImplementedError(
-            "bwd_im2col (ops/conv_backward.py) is not ported; queued in "
-            f"{_ROADMAP}, item 13")
 
 
 def _images(state: TrainState, anchor, positive, labels):
@@ -214,20 +212,34 @@ def _dots_policy(ctx, op, *args, **kwargs):
             else CheckpointPolicy.PREFER_RECOMPUTE)
 
 
-def _embed_fn(model, remat_policy: str | None):
-    """``model.embed``, under ``torch.utils.checkpoint`` for a remat
-    policy: ``"full"`` saves nothing of it, ``"dots"`` only conv and
-    matmul outputs. Dropout and BatchNorm run after it (``classify``), so
-    the recomputation redraws nothing and moves no statistics."""
+def _im2col_embed(model):
+    """``model.embed`` with every eligible conv on the im2col filter
+    gradient (the route is entered inside, so a remat recomputation takes
+    it too)."""
+
+    def embed(x):
+        with conv_interceptor_im2col_bwd():
+            return model.embed(x)
+
+    return embed
+
+
+def _embed_fn(model, remat_policy: str | None, bwd_im2col: bool = False):
+    """``model.embed`` (on the im2col filter gradient for ``bwd_im2col``),
+    under ``torch.utils.checkpoint`` for a remat policy: ``"full"`` saves
+    nothing of it, ``"dots"`` only conv and matmul outputs. Dropout and
+    BatchNorm run after it (``classify``), so the recomputation redraws
+    nothing and moves no statistics."""
+    embed = _im2col_embed(model) if bwd_im2col else model.embed
     if remat_policy is None:
-        return model.embed
+        return embed
     if remat_policy == "full":
         return functools.partial(torch.utils.checkpoint.checkpoint,
-                                 model.embed, use_reentrant=False)
+                                 embed, use_reentrant=False)
     from torch.utils.checkpoint import create_selective_checkpoint_contexts
 
     return functools.partial(
-        torch.utils.checkpoint.checkpoint, model.embed, use_reentrant=False,
+        torch.utils.checkpoint.checkpoint, embed, use_reentrant=False,
         context_fn=functools.partial(create_selective_checkpoint_contexts,
                                      _dots_policy))
 
@@ -292,10 +304,12 @@ def make_backbone_train_step(
     the backward (``"full"``: all, ``"dots"``: all but conv and matmul
     outputs), numerically identical to none. ``compute_dtype``
     (``torch.bfloat16`` for ``--bf16``) keeps float32 parameters and
-    computes in that dtype (autocast). Returns ``(state, metrics)``:
+    computes in that dtype (autocast). ``bwd_im2col`` takes each eligible
+    conv's filter gradient as an explicit im2col matmul
+    (``ops/conv_backward.py``). Returns ``(state, metrics)``:
     scalars ``loss``, ``id_loss``, ``tl_loss``, ``acc`` and per-row
     ``pos_cos`` / ``neg_cos``."""
-    _check_unported(axis_name, class_axis_name, bwd_im2col)
+    _check_unported(axis_name, class_axis_name)
     _check_mode(mining_mode)
     if remat_policy not in REMAT_POLICIES:
         raise ValueError(f"remat_policy {remat_policy!r}; choose from "
@@ -313,7 +327,7 @@ def make_backbone_train_step(
         try:
             with _autocast(images.device, compute_dtype):
                 logits, feat = model.classify(
-                    _embed_fn(model, remat_policy)(images))
+                    _embed_fn(model, remat_policy, bwd_im2col)(images))
         finally:
             _set_dropout_generator(model, None)
         num_cand = labels.shape[0] if mine_anchor_half_only else None
@@ -348,7 +362,7 @@ def make_backbone_eval_step(
     with the model in eval mode (running BatchNorm statistics, no
     dropout), no gradient and no update. With ``crop_size`` it takes the
     center crop of each row."""
-    _check_unported(axis_name, class_axis_name, False)
+    _check_unported(axis_name, class_axis_name)
     _check_mode(mining_mode)
 
     @torch.no_grad()

@@ -347,8 +347,8 @@ def test_unported_options_name_their_item():
         ttrain.make_backbone_train_step(axis_name="data")
     with pytest.raises(NotImplementedError, match="item 10"):
         ttrain.make_backbone_eval_step(class_axis_name="model")
-    with pytest.raises(NotImplementedError, match="item 13"):
-        ttrain.make_backbone_train_step(bwd_im2col=True)
+    # bwd_im2col is ported (tests/test_torch_conv_backward.py)
+    assert callable(ttrain.make_backbone_train_step(bwd_im2col=True))
 
 
 def test_eval_center_crop_and_uint8_batches_match_jax():

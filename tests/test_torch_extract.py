@@ -171,7 +171,7 @@ def test_exports_load_both_ways(jax_export, tmp_path):
 def test_extract_features_pads_and_refuses(tmp_path):
     """The last batch is padded and its pad rows dropped (features do not
     depend on the batch size); uint8 rows equal float rows / 255;
-    data-parallel and int8 extraction refuse, naming their items."""
+    data-parallel extraction refuses, naming its item, and int8 runs."""
     net = from_jax_params(_variables("lightcnn9")[1], device="cpu")
     imgs, labels = tdata.synthetic_faces(num_ids=3, per_id=3, size=SIDE)
     u8 = (imgs * 255.0).clip(0, 255).astype(np.uint8)
@@ -185,14 +185,15 @@ def test_extract_features_pads_and_refuses(tmp_path):
     ff, *_ = extract_features(net, u8.astype(np.float32) / np.float32(255),
                                 batch_size=4)
     np.testing.assert_allclose(ff, f4, rtol=1e-5, atol=1e-6)
-    for kw, item in (({"data_parallel": True}, "item 10"),
-                     ({"int8": True}, "item 13")):
-        with pytest.raises(NotImplementedError, match=item):
-            extract_features(net, u8, batch_size=4, **kw)
-    for flag, item in (("--data-parallel", "item 10"), ("--int8", "item 13")):
-        with pytest.raises(SystemExit, match=item):
-            tcli.main(["--synthetic", flag, "--device", "cpu",
-                       "--out-dir", str(tmp_path)])
+    with pytest.raises(NotImplementedError, match="item 10"):
+        extract_features(net, u8, batch_size=4, data_parallel=True)
+    with pytest.raises(SystemExit, match="item 10"):
+        tcli.main(["--synthetic", "--data-parallel", "--device", "cpu",
+                   "--out-dir", str(tmp_path)])
+    # int8 is ported (tests/test_torch_quantized.py): padded batches too
+    q4, *_ = extract_features(net, u8, batch_size=4, int8=True)
+    assert q4.shape == f4.shape
+    assert (q4 * f4).sum(1).min() >= 0.999
     with pytest.raises(SystemExit, match="item 12"):
         tcli.main(["--synthetic", "--model", "deepface", "--device", "cpu",
                    "--out-dir", str(tmp_path)])

@@ -24,6 +24,7 @@ from improving_face_recognition_performance_using_triplet_loss_tpu_torch.cli imp
     extract_features,
     identify,
     import_params,
+    landmarks68,
     lfw_eval,
     lfw_run,
     serve_demo,
@@ -31,6 +32,8 @@ from improving_face_recognition_performance_using_triplet_loss_tpu_torch.cli imp
 )
 from improving_face_recognition_performance_using_triplet_loss_tpu_torch.detect import (
     MTCNNDetector,
+    ShapePredictor,
+    mtcnn_ert_detect,
 )
 from improving_face_recognition_performance_using_triplet_loss_tpu_torch.detect.align import (
     align_directory,
@@ -44,11 +47,17 @@ from improving_face_recognition_performance_using_triplet_loss_tpu_torch.detect.
 from improving_face_recognition_performance_using_triplet_loss_tpu_torch.models.efm_symbol import (
     build_efmnet342,
 )
+from improving_face_recognition_performance_using_triplet_loss_tpu_torch.ops.quantized import (
+    quantize_lightcnn9_params,
+)
 from improving_face_recognition_performance_using_triplet_loss_tpu_torch.serve import (
     device_gallery,
     gallery,
     gallery_service,
     person_store,
+)
+from improving_face_recognition_performance_using_triplet_loss_tpu_torch.serve.pipeline import (
+    make_multistream_pipeline,
 )
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -102,7 +111,11 @@ def test_port_imports_without_jax_or_triton():
                  "serve.device_gallery", "serve.gallery",
                  "serve.gallery_service", "serve.person_store",
                  "serve.recognition", "serve.video", "serve.native",
-                 "detect.bulk", "cli.identify", "cli._common"):
+                 "detect.bulk", "cli.identify", "cli._common",
+                 "cli.__main__", "cli.landmarks68", "detect.ert",
+                 "detect.landmarks", "detect.dlib_import", "serve.export",
+                 "ops.quantized", "ops.conv_backward", "eval.projector",
+                 "utils.profiling", "utils.cache"):
         assert f"{PORT}.{name}" in mods, name
     assert int(out[1]) == len(mods) >= 20
 
@@ -117,7 +130,11 @@ def test_port_imports_without_jax_or_triton():
                                    "identify_tpu", "identify_device_gallery",
                                    "device_gallery", "gallery_matcher",
                                    "person_store_match_batch",
-                                   "gallery_service", "detect_faces_bulk"])
+                                   "gallery_service", "detect_faces_bulk",
+                                   "extract_features_int8", "landmarks68",
+                                   "mtcnn_ert_detect",
+                                   "quantize_lightcnn9_params",
+                                   "int8_embed_pipeline"])
 def test_default_device_without_cuda_raises(monkeypatch, tmp_path, entry):
     import numpy as np
 
@@ -175,7 +192,31 @@ def test_default_device_without_cuda_raises(monkeypatch, tmp_path, entry):
             person_store.PersonStore(str(tmp_path / "p.sqlite"), 4)),
         "detect_faces_bulk": lambda: detect_faces_bulk(
             [np.zeros((32, 32, 3), np.uint8)]),
+        "extract_features_int8": lambda: extract_features.main([
+            "--synthetic", "--model", "lightcnn9", "--int8", "--out-dir",
+            str(tmp_path)]),
+        "landmarks68": lambda: landmarks68.main([
+            "detect", "--predictor", str(tmp_path / "sp.npz"),
+            str(tmp_path / "face.png")]),
+        "mtcnn_ert_detect": lambda: mtcnn_ert_detect(
+            np.zeros((32, 32, 3), np.uint8), ShapePredictor(
+                mean_shape=np.zeros((68, 2), np.float32))),
+        "quantize_lightcnn9_params": lambda: quantize_lightcnn9_params(
+            {n: {"kernel": np.zeros((1, 1, 2, 2), np.float32),
+                 "bias": np.zeros(2, np.float32)}
+             for n in ("conv1", "conv2a", "conv2", "conv3a", "conv3",
+                       "conv4a", "conv4", "conv5a", "conv5", "fc1")}),
+        "int8_embed_pipeline": lambda: make_multistream_pipeline(
+            MTCNNDetector(device="cpu"), build_efmnet342(
+                4, image_size=32, device="cpu"), np.ones((1, 342)),
+            frame_h=32, frame_w=32, int8_embed=True),
     }[entry]
+    if entry == "landmarks68":
+        ShapePredictor(mean_shape=np.zeros((68, 2), np.float32)).save(
+            str(tmp_path / "sp.npz"))
+        cv2 = pytest.importorskip("cv2")
+        cv2.imwrite(str(tmp_path / "face.png"), np.zeros((32, 32, 3),
+                                                         np.uint8))
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         call()
     assert tdevice.resolve_device("cpu").type == "cpu"

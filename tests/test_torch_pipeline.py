@@ -181,6 +181,44 @@ def test_multistream_pipeline_matches_jax(nets, jax_pipeline):
                                    out["similarity"].numpy(), atol=atol)
 
 
+class _ScalarCreations(torch.overrides.TorchFunctionMode):
+    """Counts the 0-d tensors that creation functions make: each is a
+    host-to-device copy (and a stream synchronization) on the card."""
+
+    CREATORS = {torch.tensor, torch.as_tensor, torch.full,
+                torch.scalar_tensor, torch.zeros, torch.ones, torch.empty}
+
+    def __init__(self):
+        super().__init__()
+        self.made = []
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        if (func in self.CREATORS and isinstance(out, torch.Tensor)
+                and out.dim() == 0):
+            self.made.append(func.__name__)
+        return out
+
+
+@pytest.mark.parametrize("max_faces", [0, 4])
+def test_warm_dispatch_creates_no_scalar_tensor(nets, max_faces):
+    """C6: a warm multistream dispatch (one face or ``max_faces`` a
+    stream, the dynamic gallery with a device ``rows``) builds no scalar
+    tensor: the cascade's constants are built with the stage."""
+    _, _, _, tdet, tmodel = nets
+    frames = torch.from_numpy(_frames(5, 2))
+    gallery = np.random.default_rng(5).normal(size=(5, 342))
+    fn = make_multistream_pipeline(tdet, tmodel, dynamic_gallery=True,
+                                   max_faces=max_faces, device="cpu", **KW)
+    gal_n = normalize_gallery(gallery, device="cpu")
+    rows = torch.tensor(5, dtype=torch.int32)
+    fn(frames, gal_n, rows)                          # warm
+    with _ScalarCreations() as mode:
+        out = fn(frames, gal_n, rows)
+    assert out["found"].any()
+    assert mode.made == []
+
+
 def test_dynamic_gallery_rows_mask_padding(nets):
     """Rows past ``rows`` never win, even when they would match best."""
     _, _, _, tdet, tmodel = nets

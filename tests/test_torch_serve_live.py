@@ -189,11 +189,11 @@ def test_multiface_limits(nets):
     with pytest.raises(ValueError, match="64"):
         tpipe.make_multiface_pipeline(tdet, tmodel, np.ones((1, 342)),
                                       max_faces=65, device="cpu", **KW)
+    # int8_embed is ported (tests/test_torch_quantized_serve.py)
     for maker in (tpipe.make_multiface_pipeline,
                   tpipe.make_multistream_pipeline):
-        with pytest.raises(NotImplementedError, match="item 13"):
-            maker(tdet, tmodel, np.ones((1, 342)), int8_embed=True,
-                  device="cpu", **KW)
+        assert callable(maker(tdet, tmodel, np.ones((1, 342)),
+                              int8_embed=True, device="cpu", **KW))
 
 
 def test_detect_faces_bulk_matches_jax():
