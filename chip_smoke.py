@@ -73,6 +73,28 @@ before it and read just after:
   byte-equal, the port's ``NativeErt`` over the port's export against
   ``predict``, ``mtcnn_ert_detect`` on the card against a CPU rerun.
 
+- AOT export (``aot``): the serving cell (16 streams of 240x320, MTCNN
+  and EFMNet342 at 64x64 with random seeded weights, a dynamic gallery of
+  1,000 f32 rows whose ``rows`` is a runtime scalar) through ``export_aot``
+  as an ExportedProgram, its AOTInductor package and kernel bundle; each
+  route (ExportedProgram, AOTInductor, AOTInductor + bundle in a copy of
+  the port with an empty build directory) loaded in a fresh process that refuses the port's models and detect
+  (``tools/perf_aot_coldstart_torch.py``): the cold start to the first
+  identified frame, B5 4, B3 1 and B2 29 launches a dispatch inside the
+  artifact with every call of one dispatch held to its plain version, 8
+  dispatches' answers against the eager pipeline's on the same frames
+  (``found``, ``index`` and B5's masks equal, similarities within 1e-5,
+  AOTInductor's within 1e-4), frames/s, device ms and the idle share beside
+  the eager pipeline's; then ``export_extract`` of LightCNN9 at 112x96 (B4)
+  and 128x128 (B6) at batch 128, loaded the same way, held to the eager
+  extraction.
+- other models (``models``): ``train_backbone --model deepface`` at
+  152x152x3 with DeepFace's full widths, 64 pairs a step, then
+  ``extract_features --model deepface``; ``train_began`` at 64x64 with
+  the default widths; both ``--mining semi_hard_fused`` (B1 once a step,
+  its picks held to the plain version's), losses finite and falling,
+  steps/s and peak memory; B1 on exact rows at DeepFace's 4,096 width.
+
 The efm3 phase also holds the backward kernel ``efm3_bwd`` bit for bit to
 the plain version's autograd (every shape of a LightCNN29 training step,
 tie-rich inputs in four dtypes) and proves that an input that requires a
@@ -3554,11 +3576,375 @@ def phase_landmarks(ctx):
     helps = [_lm_cli("landmarks68", "-h"), _lm_cli("extract_features", "-h"),
              _lm_cli("-h")]
     checks["dispatcher_help_exits_0"] = all(r.returncode == 0 for r in helps)
-    checks["dispatcher_unported_exits_nonzero"] = (
-        _lm_cli("export_aot").returncode != 0)
+    checks["dispatcher_export_aot_train_began_help"] = all(
+        _lm_cli(c, "-h").returncode == 0 for c in ("export_aot",
+                                                   "train_began"))
     secs["dispatcher"] = time.perf_counter() - t0
     return {"ok": all(checks.values()), "checks": checks,
             "seconds_by_part": secs, **rep}
+
+
+# the extraction artifacts: (name, input HxW, the kernel its front takes)
+AOT_EXTRACT = (("lightcnn9_112x96", (112, 96), "stem2"),
+               ("lightcnn9_128", (128, 128), "front9"))
+# the cold-start routes (tools/perf_aot_coldstart_torch.py also times
+# "nobundle", the package in an empty build directory without its bundle)
+AOT_ROUTES = ("exported", "compiled", "bundle")
+# an AOTInductor artifact's answers against the eager pipeline: Inductor
+# fuses and reorders float32 work, so sims move by rounding
+AOTI_SIM_ATOL = 1e-4
+
+
+def _coldstart_tool():
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    import perf_aot_coldstart_torch
+
+    return perf_aot_coldstart_torch
+
+
+def _aot_compare(eager_outs, eager_masks, route_out, atol) -> dict:
+    """An artifact's dispatches (``route_out`` npz) against the eager
+    pipeline's: ``found``, ``index`` and B5's masks of the first dispatch
+    equal, ``similarity`` and ``embedding`` within ``atol``."""
+    import numpy as np
+
+    got = np.load(route_out)
+    sim_err = emb_err = 0.0
+    equal = True
+    for i, want in enumerate(eager_outs):
+        equal &= bool(np.array_equal(got[f"found_{i}"], want["found"])
+                      and np.array_equal(got[f"index_{i}"], want["index"]))
+        sim_err = max(sim_err, float(np.abs(got[f"similarity_{i}"]
+                                            - want["similarity"]).max()))
+        emb_err = max(emb_err, float(np.abs(got[f"embedding_{i}"]
+                                            - want["embedding"]).max()))
+    masks = [got[f"nms_mask_{j}"] for j in range(len(eager_masks))
+             if f"nms_mask_{j}" in got]
+    masks_equal = len(masks) == len(eager_masks) == 4 and all(
+        np.array_equal(a, b) for a, b in zip(masks, eager_masks))
+    return {"found_index_equal": equal, "b5_masks_equal": masks_equal,
+            "sim_max_abs_err": sim_err, "emb_max_abs_err": emb_err,
+            "ok": equal and masks_equal and sim_err <= atol}
+
+
+def aot_extract(ctx, tool, work) -> dict:
+    """``export_extract`` of LightCNN9 at 112x96 (B4) and 128x128 (B6, f32),
+    batch 128, each loaded in a fresh process that refuses the port's
+    models and detect, fed the state dict of the model it was exported
+    from, its outputs held to the eager extraction's."""
+    import numpy as np
+    import torch
+
+    from improving_face_recognition_performance_using_triplet_loss_tpu_torch.extract import (
+        make_extract_fn,
+    )
+    from improving_face_recognition_performance_using_triplet_loss_tpu_torch.models import (
+        model_by_name,
+    )
+    from improving_face_recognition_performance_using_triplet_loss_tpu_torch.serve import (
+        aot,
+    )
+
+    p = lambda name: os.path.join(work, name)  # noqa: E731
+    jobs, eager, secs = [], {}, {}
+    rng = np.random.default_rng(3)
+    for name, hw, _ in AOT_EXTRACT:
+        model = model_by_name("lightcnn9", 1000, input_hw=hw,
+                              generator=torch.Generator().manual_seed(1))
+        t0 = time.perf_counter()
+        aot.export_extract(p(f"{name}.pt2"), model, 128, *hw)
+        secs[name] = time.perf_counter() - t0
+        images = rng.random((128, *hw, 1)).astype(np.float32)
+        np.save(p(f"{name}_images.npy"), images)
+        torch.save(model.state_dict(), p(f"{name}_state.pt"))
+        logits, feat = make_extract_fn(model)(torch.from_numpy(images).cuda())
+        eager[name] = (logits.cpu().numpy(), feat.cpu().numpy())
+        jobs.append({"artifact": p(f"{name}.pt2"),
+                     "state": p(f"{name}_state.pt"),
+                     "images": p(f"{name}_images.npy"),
+                     "out": p(f"{name}_out.npz"), "calls": 4})
+    with open(p("extract_jobs.json"), "w") as f:
+        json.dump(jobs, f)
+    res = tool.run_child(["--extract-child", p("extract_jobs.json"), ROOT])
+    checks, rep = {}, {"export_seconds": secs, **res}
+    for (name, _, kernel), job, run in zip(AOT_EXTRACT, jobs, res["extract"]):
+        got = np.load(job["out"])
+        err = float(np.abs(got["features"] - eager[name][1]).max())
+        rep[f"{name}_feature_max_abs_err"] = err
+        checks[f"{name}_features_1e-5"] = err <= 1e-5
+        checks[f"{name}_{kernel}_once_a_call"] = (
+            run["launches_per_call"][kernel] == 1)
+        read_launches_from(ctx, {kernel: int(run["launches_per_call"][kernel]
+                                             * job["calls"])})
+    checks["no_model_imports"] = not res["models_or_detect_imported"]
+    return {"checks": checks, **rep}
+
+
+def phase_aot(ctx):
+    """AOT export on the card (module docstring): the serving cell through
+    ``export_aot`` as an ExportedProgram, an AOTInductor package and its
+    kernel bundle; each route loaded in a fresh process that refuses the
+    port's models and detect (cold start to the first identified frame,
+    B5 / B3 / B2 counted inside the artifact, every kernel call of one
+    dispatch held to its plain version, frames/s, device ms and the idle
+    share), its answers held to the eager pipeline's on the same frames;
+    then the extraction artifacts (B4, B6)."""
+    import numpy as np
+    import torch
+
+    from improving_face_recognition_performance_using_triplet_loss_tpu_torch.detect import (
+        MTCNNDetector,
+    )
+    from improving_face_recognition_performance_using_triplet_loss_tpu_torch.ops.cuda import (
+        efm3,
+        nms,
+    )
+    from improving_face_recognition_performance_using_triplet_loss_tpu_torch.serve.convert import (
+        from_jax_params,
+    )
+    from improving_face_recognition_performance_using_triplet_loss_tpu_torch.serve.pipeline import (
+        make_multistream_pipeline,
+    )
+
+    tool = _coldstart_tool()
+    checks, rep = {}, {"torch": torch.__version__, "cuda": torch.version.cuda}
+    with tempfile.TemporaryDirectory() as work:
+        arts = tool.export_serving(work)
+        rep["export"] = {k: arts[k] for k in ("seconds", "bytes",
+                                               "bundle_files")}
+        inputs = tool.serving_inputs(os.path.join(work, "inputs.npz"))
+        full_f32()
+        pipe = make_multistream_pipeline(
+            MTCNNDetector(seed=0), from_jax_params(arts["export_dir"],
+                                                   dtype=torch.float32),
+            None, frame_h=FRAME_HW[0], frame_w=FRAME_HW[1], embed_size=IMAGE,
+            thresholds=(0.3, 0.3, 0.3), dynamic_gallery=True)
+        data = np.load(inputs)
+        frames = torch.from_numpy(data["frames"]).cuda()
+        gallery = torch.from_numpy(data["gallery"]).cuda()
+        rows = torch.tensor(tool.GALLERY_ROWS, dtype=torch.int32,
+                            device="cuda")
+        for c in ctx["counters"].values():
+            c.reset()
+        eager = [{k: v.cpu().numpy() for k, v in
+                  pipe(frames[i], gallery, rows).items()}
+                 for i in range(frames.shape[0])]
+        torch.cuda.synchronize()
+        eager_counts = {k: ctx["counters"][k].count / frames.shape[0]
+                        for k in ("nms", "stem", "efm3")}
+        with tool.KernelCalls() as calls:
+            pipe(frames[0], gallery, rows)
+            torch.cuda.synchronize()
+        eager_masks = [got.cpu().numpy() for kind, _, got in calls.calls
+                       if kind == "nms"]
+        rep["eager"] = {"launches_per_dispatch": eager_counts,
+                        "faces_found": int(sum(o["found"].sum()
+                                               for o in eager)),
+                        **tool.measure(torch, pipe, frames, gallery, rows)}
+        # the eager wrappers' host cost a call (the efm3 and nms phases'
+        # measure), with the facejax ops registered beside them
+        x = torch.randn(STREAMS * 8 * 8, 387, device="cuda")
+        boxes = torch.rand(STREAMS, 64, 5, device="cuda") * 100
+        rep["eager_host_us"] = {
+            "efm3": host_us(lambda: efm3.efm3_rows(x)),
+            "nms": host_us(lambda: nms.nms_mask_batched(boxes, 0.7, "Min"),
+                           calls=300)}
+        checks["eager_b5_b3_b2_4_1_29"] = eager_counts == {
+            "nms": 4, "stem": 1, "efm3": 29}
+        checks["eager_finds_faces"] = rep["eager"]["faces_found"] > 0
+        for route in AOT_ROUTES:
+            res = tool.run_route(route, arts, inputs, work)
+            atol = 1e-5 if route == "exported" else AOTI_SIM_ATOL
+            cmp = _aot_compare(eager, eager_masks, res.pop("out"), atol)
+            rep[route] = {**res, "vs_eager": cmp}
+            checks[f"{route}_equals_eager"] = cmp["ok"]
+            checks[f"{route}_b5_b3_b2_4_1_29"] = res[
+                "launches_per_dispatch"] == {"nms": 4, "stem": 1, "efm3": 29}
+            checks[f"{route}_calls_equal_plain"] = res[
+                "kernel_calls_vs_plain"]["ok"]
+            checks[f"{route}_no_model_imports"] = not res[
+                "models_or_detect_imported"]
+        read_launches_from(ctx, {k: int(v * (tool.DISPATCHES - 1))
+                                 for k, v in rep["exported"][
+                                     "launches_per_dispatch"].items()})
+        ext = aot_extract(ctx, tool, work)
+        checks.update(ext.pop("checks"))
+        rep["extract"] = ext
+    return {"ok": all(checks.values()), "checks": checks, **rep}
+
+
+# the models phase: DeepFace at its canonical 152x152x3 with its full
+# widths (LC 16, f7 4,096), 64 pairs a step at the rate of the JAX
+# package's DeepFace step test (Adam 1e-3: flax's init leaves DeepFace's
+# features ~3e-7 in size, PERF.md); BEGAN-CS at 64x64 with the model's
+# default widths (n = 64, h = 64), 16 pairs a step
+DEEPFACE_SIDE, DEEPFACE_IDS, DEEPFACE_EPOCHS, DEEPFACE_LR = 152, 64, 5, 1e-3
+BEGAN_SIDE, BEGAN_IDS, BEGAN_EPOCHS = 64, 64, 3
+
+
+def _faces_store(path, ids, side, seed) -> str:
+    from improving_face_recognition_performance_using_triplet_loss_tpu_torch.data import (
+        save_image_store,
+        synthetic_faces,
+    )
+
+    faces, labels = synthetic_faces(num_ids=ids, per_id=4, size=side,
+                                    channels=3, seed=seed)
+    save_image_store(path, faces, labels)
+    return path
+
+
+def _b1_gaps(torch, calls) -> dict:
+    """B1's picks against the plain version's on the same inputs: how many
+    differ, the largest gap between two picks' distances (float64), how
+    many differences no rounding explains, whether every pick is a
+    negative, and how many anchor rows were zero."""
+    from improving_face_recognition_performance_using_triplet_loss_tpu_torch.ops.cuda import (
+        mining,
+    )
+
+    gap, negatives, zero_rows, unexplained, differing = 0.0, True, 0, 0, 0
+    for (anc, pos_sq, al, pool, pl), got in calls:
+        want = mining.semi_hard_mining_plain(anc, pos_sq, al, pool, pl)
+        diff = got != want
+        differing += int(diff.sum())
+        zero_rows += int((anc.abs().sum(1) == 0).sum())
+        negatives &= bool((pl[got.long()] != al).all())
+        if diff.any():
+            dist = lambda idx: ((anc.double() - pool[idx.long()].double())  # noqa: E731
+                                ** 2).sum(1)
+            dg, dw = dist(got), dist(want)
+            ps = pos_sq.double()
+            gap = max(gap, float((dg - dw).abs()[diff].max()))
+            # a differing pick is explained by rounding when the two
+            # picks' distances tie, or when either sits on the semi-hard
+            # threshold (d > pos_sq) within rounding
+            near = (((dg - dw).abs() <= 1e-5) | ((dg - ps).abs() <= 1e-5)
+                    | ((dw - ps).abs() <= 1e-5))
+            unexplained += int((diff & ~near).sum())
+    return {"differing": differing, "max_gap": gap,
+            "unexplained": unexplained, "all_negatives": negatives,
+            "zero_anchor_rows": zero_rows}
+
+
+def _record_b1(ctx, run):
+    """``run()`` with the launch counts set to 0 just before and read just
+    after, and every B1 call's inputs and picks recorded."""
+    import torch
+
+    from improving_face_recognition_performance_using_triplet_loss_tpu_torch.train import (
+        steps as steps_mod,
+    )
+
+    calls, real = [], steps_mod.semi_hard_mining
+
+    def recording(*args):
+        out = real(*args)
+        calls.append(([a.detach().clone() for a in args], out.clone()))
+        return out
+
+    steps_mod.semi_hard_mining = recording
+    try:
+        for c in ctx["counters"].values():
+            c.reset()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = {k: c.count for k, c in ctx["counters"].items() if c.count}
+    finally:
+        steps_mod.semi_hard_mining = real
+    return out, calls, launches, secs, torch.cuda.max_memory_allocated()
+
+
+def phase_models(ctx):
+    """The other models on the card (module docstring): ``train_backbone
+    --model deepface`` at 152x152x3 and full width, then ``extract_features
+    --model deepface`` over its export; ``train_began`` at 64x64 with the
+    default widths; both with ``--mining semi_hard_fused`` (B1 picks held
+    to the plain version's on the same features)."""
+    import numpy as np
+    import torch
+
+    from improving_face_recognition_performance_using_triplet_loss_tpu_torch.cli import (
+        extract_features,
+        train_backbone,
+        train_began,
+    )
+
+    checks, rep = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        p = lambda name: os.path.join(tmp, name)  # noqa: E731
+        store = _faces_store(p("df.npz"), DEEPFACE_IDS, DEEPFACE_SIDE, 0)
+        argv = ["--images", store, "--model", "deepface", "--epochs",
+                str(DEEPFACE_EPOCHS), "--batch-size", "64", "--lr",
+                str(DEEPFACE_LR), "--mining",
+                "semi_hard_fused", "--device", "cuda", "--out-dir", p("df")]
+        (state, hist), calls, launches, secs, peak = _record_b1(
+            ctx, lambda: train_backbone.main(argv))
+        steps = [st for h in hist for st in h.steps]
+        losses = [st["loss"] for st in steps]
+        read_launches_from(ctx, {"mining": launches.get("mining", 0)})
+        gaps = rep["deepface_b1_gaps"] = _b1_gaps(torch, calls)
+        rep["deepface"] = {
+            "steps": len(steps), "launches": launches,
+            "epoch_loss": [h.train["loss"] for h in hist],
+            "steps_per_s": len(steps) / sum(st["seconds"] for st in steps),
+            "seconds": secs, "peak_gib": peak / 2 ** 30,
+            "params": sum(q.numel() for q in state.model.parameters())}
+        checks["deepface_tf32_off"] = tf32_off()
+        checks["deepface_b1_once_a_step"] = launches.get("mining") == len(
+            steps)
+        checks["deepface_b1_equals_plain"] = (gaps["unexplained"] == 0
+                                              and gaps["all_negatives"])
+        # B1 at DeepFace's width on exact integer rows: no rounding, so
+        # every pick must equal the plain version's
+        from improving_face_recognition_performance_using_triplet_loss_tpu_torch.ops.cuda import (
+            mining,
+        )
+
+        args = _int_rows(torch, np.random.default_rng(6), 64, 128, 4096, 16)
+        checks["b1_exact_d4096"] = bool(
+            (mining.semi_hard_mining(*args)
+             == mining.semi_hard_mining_plain(*args)).all())
+        checks["deepface_loss_finite_falling"] = (
+            bool(np.isfinite(losses).all())
+            and hist[-1].train["loss"] < hist[0].train["loss"])
+        out = extract_features.main(["--train-images", store, "--export-dir",
+                                     p("df/export"), "--batch-size", "128",
+                                     "--out-dir", p("dfx"), "--device",
+                                     "cuda"])
+        feats = np.load(p("dfx/train.npz"))["features"]
+        rep["deepface_extract"] = {"rows": int(feats.shape[0]),
+                                   "dim": int(feats.shape[1])}
+        checks["deepface_extract_4096_finite"] = (
+            feats.shape == (DEEPFACE_IDS * 4, 4096)
+            and bool(np.isfinite(feats).all()))
+        del out, state
+
+        store = _faces_store(p("bg.npz"), BEGAN_IDS, BEGAN_SIDE, 1)
+        argv = ["--images", store, "--epochs", str(BEGAN_EPOCHS),
+                "--batch-size", "16", "--filters", "64", "--h-dim", "64",
+                "--mining", "semi_hard_fused", "--sample-every", "1",
+                "--device", "cuda", "--out-dir", p("bg")]
+        (gstate, conv), calls, launches, secs, peak = _record_b1(
+            ctx, lambda: train_began.main(argv))
+        gaps = _b1_gaps(torch, calls)
+        steps = gstate.step
+        rep["began"] = {"steps": steps, "launches": launches,
+                        "convergence": conv, "k_t": float(gstate.k_t),
+                        "steps_per_s": steps / secs, "seconds": secs,
+                        "peak_gib": peak / 2 ** 30, "b1_gaps": gaps}
+        checks["began_b1_once_a_step"] = launches.get("mining") == steps
+        checks["began_b1_equals_plain"] = (gaps["unexplained"] == 0
+                                           and gaps["all_negatives"])
+        checks["began_convergence_finite_falling"] = (
+            bool(np.isfinite(conv).all()) and conv[-1] < conv[0])
+        checks["began_k_t_moved"] = float(gstate.k_t) > 0.0
+        checks["began_samples_written"] = os.path.exists(
+            p(f"bg/samples_{BEGAN_EPOCHS - 1:04d}.jpg"))
+    return {"ok": all(checks.values()), "checks": checks, **rep}
 
 
 PHASES = {"build": phase_build, "nms": phase_nms, "stem": phase_stem,
@@ -3566,7 +3952,8 @@ PHASES = {"build": phase_build, "nms": phase_nms, "stem": phase_stem,
           "stem2": phase_stem2, "slice": phase_slice, "head": phase_head,
           "extract": phase_extract, "serve9": phase_serve9,
           "backbone": phase_backbone, "lfw": phase_lfw, "live": phase_live,
-          "int8": phase_int8, "landmarks": phase_landmarks}
+          "int8": phase_int8, "landmarks": phase_landmarks,
+          "aot": phase_aot, "models": phase_models}
 
 
 def pytorch_defaults(torch) -> None:

@@ -14,10 +14,12 @@ JAX twin:
                 wrappers of the hand-written Hopper kernels whose CUDA C++
                 sources live in ``csrc/``.
 - ``models``  — MTCNN PNet/RNet/ONet, the 342-d EFM symbol ladder,
-                LightCNN9 / LightCNN29 and the linear triplet head.
-- ``losses``, ``train`` — the triplet, joint and center losses, the
-                backbone's and the head's train and eval steps, the
-                optimizer families, checkpoints and the epoch loop.
+                LightCNN9 / LightCNN29, DeepFace, the BEGAN-CS generator
+                and autoencoder-discriminator and the linear triplet head.
+- ``losses``, ``train`` — the triplet, joint, center and BEGAN-CS losses,
+                the backbone's, the head's and the BEGAN-CS train and eval
+                steps, the optimizer families, checkpoints and the epoch
+                loop.
 - ``data``, ``eval`` — pair batching (in memory and streamed), feature and
                 image stores, batch transforms, device prefetching,
                 synthetic data, LFW pairs; the cosine-similarity sink and
@@ -25,12 +27,14 @@ JAX twin:
 - ``detect``  — the MTCNN detector: its host cascade, the batched
                 on-device cascade (``DeviceCascade``), dataset alignment,
                 68-point ERT landmarks and the dlib ``.dat`` codec.
-- ``serve``   — weight export/import and the fused recognition pipelines.
+- ``serve``   — weight export/import, the fused recognition pipelines
+                and their ahead-of-time export (``torch.export``,
+                AOTInductor; the kernels as ``facejax`` ``torch.library``
+                ops).
 - ``utils``   — the MXNet ``.params`` reader / writer and mappings,
                 tracing, timers and FLOP counts.
-- ``cli``     — every command of the JAX package but ``export_aot`` and
-                ``train_began``, and the ``python -m <package>.cli
-                <command>`` dispatcher.
+- ``cli``     — every command of the JAX package, and the ``python -m
+                <package>.cli <command>`` dispatcher.
 
 Every entry point runs on ``cuda`` unless the caller passes
 ``device="cpu"``; with no CUDA present the default device raises.

@@ -2,8 +2,7 @@
 
 Port of the JAX package's ``cli/__main__.py``: the same 17 commands, usage
 text and exit codes (0 for ``-h`` / ``--help``, 2 for no command or an
-unknown one). ``export_aot`` and ``train_began`` have no port module yet:
-they exit non-zero naming their ROADMAP.md item.
+unknown one); every command has its port module.
 """
 
 from __future__ import annotations
@@ -18,14 +17,6 @@ COMMANDS = [
     "identify", "landmarks68", "import_params", "export_aot",
 ]
 
-# commands without a port module yet, and the ROADMAP.md item of each
-UNPORTED = {
-    "export_aot": "AOT export is not ported; queued in ROADMAP.md queue A, "
-                  "item 5",
-    "train_began": "BEGAN training is not ported; queued in ROADMAP.md "
-                   "queue A, item 12",
-}
-
 
 def main(argv=None):
     argv = list(sys.argv[1:] if argv is None else argv)
@@ -33,8 +24,6 @@ def main(argv=None):
         print("usage: ... cli <command> [args...]\ncommands: "
               + ", ".join(COMMANDS))
         return 0 if argv and argv[0] in ("-h", "--help") else 2
-    if argv[0] in UNPORTED:
-        raise SystemExit(f"{argv[0]}: {UNPORTED[argv[0]]}")
     mod = importlib.import_module(f"{__package__}.{argv[0]}")
     return mod.main(argv[1:])
 

@@ -12,8 +12,9 @@ B6 (square inputs, multiples of 4) or B4 (other even sizes), LightCNN29
 and EFMNet342 kernels B3 and B2. Runs on ``cuda`` unless ``--device cpu``
 is given. ``--int8`` runs every eligible conv as an exact int8 product
 (``ops/quantized.py``; LightCNN9's front then takes B4, never B6).
-``--data-parallel`` is not ported yet (ROADMAP.md A10); ``--model
-deepface`` is not either (A12).
+``--model deepface`` takes 3 channels (72x72 synthetic faces without an
+export, as the JAX CLI). ``--data-parallel`` is not ported yet
+(ROADMAP.md A10).
 
     python -m improving_face_recognition_performance_using_triplet_loss_tpu_torch.cli.extract_features \\
         --synthetic --model lightcnn9 --out-dir /tmp/extract
@@ -83,7 +84,7 @@ def _load_splits(args) -> dict:
     from ..data.synthetic import synthetic_faces
 
     if args.synthetic:
-        size, ch = 64, 1
+        size, ch = (72, 3) if args.model == "deepface" else (64, 1)
         if args.export_dir:
             # the export manifest knows the trained input size; a fixture at
             # any other size would fail at the dense layer

@@ -8,9 +8,9 @@ under the facenet protocol (facenet.py:428-520, ``eval/lfw.py``). The net
 is an export (``--export-dir``, JAX or port; its tree names the model and
 its manifest the input) or a random init of ``--model`` from seed 0. On
 the card LightCNN29 and EFMNet342 run kernels B3 (on the tensor cores) and
-B2, LightCNN9 at 128x128 kernel B6 (on the tensor cores). Runs on ``cuda``
-unless ``--device cpu`` is given; ``--model deepface`` is not ported
-(ROADMAP.md A12).
+B2, LightCNN9 at 128x128 kernel B6 (on the tensor cores); DeepFace runs
+no kernel of the port. Runs on ``cuda`` unless ``--device cpu`` is
+given.
 
     python -m improving_face_recognition_performance_using_triplet_loss_tpu_torch.cli.lfw_eval \\
         --images pairs.npz --export-dir runs/bb/export

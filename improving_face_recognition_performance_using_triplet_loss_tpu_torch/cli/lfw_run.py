@@ -11,8 +11,7 @@ row per export (input size and channels from its manifest) or random-init
 images needs cv2. ``--det-weights`` (the port's one flag beyond the JAX
 CLI's and ``--device``) gives ``--align`` its detector's weights, where
 the JAX CLI always aligns with a random-init detector. Runs on ``cuda``
-unless ``--device cpu`` is given; ``--model deepface`` is not ported
-(ROADMAP.md A12).
+unless ``--device cpu`` is given.
 
     python -m improving_face_recognition_performance_using_triplet_loss_tpu_torch.cli.lfw_run \\
         --lfw lfw.tgz --pairs pairs.txt --align \\

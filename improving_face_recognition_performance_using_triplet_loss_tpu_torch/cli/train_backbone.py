@@ -13,7 +13,8 @@ port's extractor and the JAX package load. ``--mining semi_hard_fused``
 mines with kernel B1 on the card, and every EFM3 runs kernel B2 forward
 and backward. Runs on ``cuda`` unless ``--device cpu`` is given.
 ``--data-parallel`` and ``--class-parallel`` are not ported yet
-(ROADMAP.md A10), nor is ``--model deepface`` (A12).
+(ROADMAP.md A10). ``--model deepface`` trains the 3-channel DeepFace
+(``--synthetic`` faces at 72x72 at least, its 65-pixel floor).
 
     python -m improving_face_recognition_performance_using_triplet_loss_tpu_torch.cli.train_backbone \\
         --images store/ --epochs 2 --mining semi_hard_fused --out-dir /tmp/bb
@@ -47,7 +48,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--synthetic", action="store_true")
     p.add_argument("--synthetic-size", type=int, default=64)
     p.add_argument("--synthetic-channels", type=int, default=0,
-                   help="0 = per-model default (1)")
+                   help="0 = per-model default (3 for deepface, else 1)")
     p.add_argument("--model", default="lightcnn29", choices=MODEL_NAMES)
     p.add_argument("--out-dir", default="runs/train_backbone")
     p.add_argument("--epochs", type=int, default=280)
@@ -104,9 +105,6 @@ def _check_args(args) -> None:
         flag = "--data-parallel" if args.data_parallel else "--class-parallel"
         raise SystemExit(f"{flag} is not ported; data and class "
                          f"parallelism are queued in {_ROADMAP}, item 10")
-    if args.model == "deepface":
-        raise SystemExit("--model deepface is not ported; DeepFace is "
-                         f"queued in {_ROADMAP}, item 12")
 
 
 def load_images(args):
@@ -117,9 +115,16 @@ def load_images(args):
     from ..data.synthetic import synthetic_faces
 
     if args.synthetic:
-        channels = getattr(args, "synthetic_channels", 0) or 1
-        images, labels = synthetic_faces(num_ids=16, per_id=16,
-                                         size=args.synthetic_size,
+        # DeepFace is the RGB 152x152 pipeline: its synthetic stand-in
+        # defaults to 3 channels and respects its >= 65 px floor (other
+        # CLIs share this loader with parsers that have no --model)
+        model = getattr(args, "model", "")
+        channels = getattr(args, "synthetic_channels", 0) or (
+            3 if model == "deepface" else 1)
+        size = args.synthetic_size
+        if model == "deepface" and size < 65:
+            size = 72
+        images, labels = synthetic_faces(num_ids=16, per_id=16, size=size,
                                          channels=channels, seed=args.seed)
         return images, labels, False
     if args.images:

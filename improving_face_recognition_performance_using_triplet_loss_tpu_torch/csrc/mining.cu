@@ -26,7 +26,13 @@
 // The dropped lo.lo and the residue of x - hi - lo are ~2^-21 of
 // sum |a_k p_k|, which is <= 1 for L2-normalized rows: well inside the
 // 1e-5 distance tolerance the path is held to, where one TF32 pass (~5e-4)
-// is not. For integer coordinates below 2^11 in magnitude hi = x and
+// is not. The tensor cores' float32 accumulation truncates each sum: an
+// accumulator that carried the whole dot lost up to an ulp of it on every
+// one of the 3 D / 8 wgmma steps, a bias that grows with D and with the
+// dot's size (near-parallel rows: DeepFace's 4,096-d features missed the
+// plain picks by up to 2e-4 in distance). So each 32-deep chunk starts a
+// fresh accumulator (wgmma's scale-d = 0), whose sum is small, and the
+// chunks' dots are added on the CUDA cores in float32, rounded to nearest. For integer coordinates below 2^11 in magnitude hi = x and
 // lo = 0, so every product and partial sum is exact and the indices equal
 // the plain version's. The row norms are full float32 from the original x,
 // in the order of the earlier CUDA-core kernel, and the distance is formed
@@ -48,9 +54,9 @@
 //   tile); for larger D each stage carries both.
 // - Each consumer issues wgmma.m64n128k8 TF32 from shared memory (both
 //   operands K-major, which tf32 requires; the rows are already row-major
-//   [rows, K]), hi.lo, lo.hi then hi.hi per k-step into one float32
-//   accumulator, and keeps one chunk's group in flight while it waits for
-//   the next.
+//   [rows, K]), hi.lo, lo.hi then hi.hi per k-step into the chunk's float32
+//   accumulator, waits for the chunk, hands its stage back and adds it to
+//   the tile's dots (the producer keeps the ring full meanwhile).
 // - The epilogue works in the wgmma accumulator layout: a thread holds 2
 //   anchor rows per m64 tile and pairs of adjacent pool columns, walks them
 //   in increasing j with strict comparisons, and keeps (semi_d, semi_i,
@@ -178,9 +184,10 @@ __device__ __forceinline__ void reg_fence(float& r) {
   asm volatile("" : "+f"(r)::"memory");
 }
 
-// d[64] += A[64 x 8] . B[8 x 128] in TF32, both from shared memory, K-major
+// d[64] = A[64 x 8] . B[8 x 128] + (acc ? d : 0) in TF32, both from shared
+// memory, K-major
 __device__ __forceinline__ void wgmma_tf32(float (&d)[64], uint64_t da,
-                                           uint64_t db) {
+                                           uint64_t db, int acc) {
   asm volatile(
       "{\n\t.reg .pred p;\n\tsetp.ne.b32 p, %66, 0;\n\t"
       "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
@@ -202,7 +209,7 @@ __device__ __forceinline__ void wgmma_tf32(float (&d)[64], uint64_t da,
         "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
         "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(1));
+      : "l"(da), "l"(db), "r"(acc));
 }
 
 // Pre-pass, one warp per row over anchors then pool: hi / lo TF32 halves
@@ -332,19 +339,10 @@ mining_tc(__grid_constant__ const CUtensorMap anc_map,
   if (RES) mbar_wait(a_full, 0);
   int stage = 0;
   uint32_t phase = 0;
-  float acc[64];
+  float acc[64], dot[64];
   for (int t = t_begin; t < t_end; ++t) {
-    // this thread's {p2, label} pairs of the tile (columns 8 jb + 2 q and
-    // + 1; pinfo is padded to whole tiles), loaded now so that the loads
-    // complete under the tile's wgmma instead of stalling the epilogue
-    float4 pc[TN / 8];
 #pragma unroll
-    for (int jb = 0; jb < TN / 8; ++jb)
-      pc[jb] = __ldg(reinterpret_cast<const float4*>(pinfo + t * TN + 8 * jb +
-                                                     2 * q));
-#pragma unroll
-    for (int r = 0; r < 64; ++r) acc[r] = 0.0f;
-    int prev = -1;
+    for (int r = 0; r < 64; ++r) dot[r] = 0.0f;
     for (int kc = 0; kc < nk; ++kc) {
       mbar_wait(full(stage), phase);
       const uint32_t st = base + L::A_BYTES + stage * L::STAGE;
@@ -360,26 +358,34 @@ mining_tc(__grid_constant__ const CUtensorMap anc_map,
         const uint64_t a_lo = sw128_desc(a + TILE + 32 * ks);
         const uint64_t p_hi = sw128_desc(p + 32 * ks);
         const uint64_t p_lo = sw128_desc(p + TILE + 32 * ks);
-        wgmma_tf32(acc, a_hi, p_lo);
-        wgmma_tf32(acc, a_lo, p_hi);
-        wgmma_tf32(acc, a_hi, p_hi);
+        // the chunk's first product starts the accumulator afresh
+        wgmma_tf32(acc, a_hi, p_lo, ks);
+        wgmma_tf32(acc, a_lo, p_hi, 1);
+        wgmma_tf32(acc, a_hi, p_hi, 1);
       }
       wgmma_commit();
-      if (prev >= 0) {
-        // the previous chunk's products are done: hand its stage back
-        wgmma_wait<1>();
-        if (lt == 0) mbar_arrive(empty(prev));
-      }
-      prev = stage;
+      wgmma_wait<0>();
+#pragma unroll
+      for (int r = 0; r < 64; ++r) reg_fence(acc[r]);
+      // the chunk's products are done: hand its stage back, then add the
+      // chunk's dots to the tile's in float32, rounded to nearest
+      if (lt == 0) mbar_arrive(empty(stage));
+#pragma unroll
+      for (int r = 0; r < 64; ++r) dot[r] = __fadd_rn(dot[r], acc[r]);
       if (++stage == STAGES) {
         stage = 0;
         phase ^= 1u;
       }
     }
-    wgmma_wait<0>();
+
+    // this thread's {p2, label} pairs of the tile (columns 8 jb + 2 q and
+    // + 1; pinfo is padded to whole tiles); after the products, as the
+    // registers hold the chunk's accumulator and the tile's dots until then
+    float4 pc[TN / 8];
 #pragma unroll
-    for (int r = 0; r < 64; ++r) reg_fence(acc[r]);
-    if (lt == 0) mbar_arrive(empty(prev));
+    for (int jb = 0; jb < TN / 8; ++jb)
+      pc[jb] = __ldg(reinterpret_cast<const float4*>(pinfo + t * TN + 8 * jb +
+                                                     2 * q));
 
     // epilogue: this thread's columns in increasing j, strict comparisons,
     // so the first index wins within the thread; the masks are predicates,
@@ -398,7 +404,7 @@ mining_tc(__grid_constant__ const CUtensorMap anc_map,
           const bool neg = in_pool & (pl != al[h]);
           const float d = fmaxf(
               __fsub_rn(__fadd_rn(a2[h], p2),
-                        __fmul_rn(2.0f, acc[4 * jb + 2 * h + e])),
+                        __fmul_rn(2.0f, dot[4 * jb + 2 * h + e])),
               0.0f);
           const bool semi = neg & (d > ps[h]) & (d < semi_d[h]);
           semi_d[h] = semi ? d : semi_d[h];

@@ -1,2 +1,2 @@
 """Losses of the port: triplet, softmax cross-entropy, the joint id +
-triplet objective and center loss."""
+triplet objective, center loss and the BEGAN-CS loss pieces."""

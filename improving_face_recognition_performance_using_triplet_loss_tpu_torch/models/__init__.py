@@ -1,10 +1,17 @@
 """Models of the port: MTCNN PNet/RNet/ONet, the 342-d EFM symbol ladder,
-LightCNN29 and LightCNN9 (with the LightCNN building blocks), the linear
-triplet head, and ``model_by_name``, the embedding-net factory the CLIs
-share."""
+LightCNN29 and LightCNN9 (with the LightCNN building blocks), DeepFace,
+the BEGAN-CS generator and autoencoder-discriminator, the linear triplet
+head, and ``model_by_name``, the embedding-net factory the CLIs share."""
 
 import torch
 
+from .began_cs import (  # noqa: F401
+    AutoencoderDiscriminator,
+    Decoder,
+    Encoder,
+    Generator,
+)
+from .deepface import DeepFace, LocallyConnected2D, build_deepface  # noqa: F401
 from .efm_symbol import EFMNet342, build_efmnet342  # noqa: F401
 from .heads import LinearHead  # noqa: F401
 from .lightcnn import (  # noqa: F401
@@ -31,11 +38,12 @@ def model_by_name(name: str, num_classes: int, *, input_hw=(128, 128),
     port's copy of the JAX package's ``cli/train_backbone.py::
     _model_by_name``, with the weights made here (flax ``params`` and
     ``batch_stats`` loaded, else a random init from ``generator``).
-    ``deepface`` is not ported and exits naming its ROADMAP item."""
-    if name == "deepface":
-        raise SystemExit("--model deepface is not ported; DeepFace is "
-                         "queued in ROADMAP.md queue A, item 12")
+    ``deepface`` takes 3 channels at 152x152 in the JAX CLIs: the caller
+    passes them."""
     kw = dict(params=params, generator=generator, dtype=dtype, device=device)
+    if name == "deepface":
+        return build_deepface(num_classes, input_hw=input_hw,
+                              in_channels=in_channels, **kw)
     if name == "efmnet342":
         if input_hw[0] != input_hw[1] or in_channels != 1:
             raise ValueError(f"efmnet342 takes square one-channel input, "

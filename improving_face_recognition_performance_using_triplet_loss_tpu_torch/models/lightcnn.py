@@ -507,6 +507,8 @@ class LightCNN9(FlaxLayers):
     def _front9_weights(self, dtype: torch.dtype) -> dict:
         """B6's packed weights for ``dtype``, packed once and kept until a
         weight changes (new storage or an in-place write)."""
+        if torch.compiler.is_compiling():   # packed in the traced program
+            return pack_front9_weights(self.front_params(), dtype)
         convs = (self.conv1.conv, self.conv2a, self.conv2)
         key = (dtype,) + tuple((t.data_ptr(), t._version) for c in convs
                                for t in (c.weight, c.bias))

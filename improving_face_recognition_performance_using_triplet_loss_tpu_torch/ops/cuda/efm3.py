@@ -20,6 +20,15 @@ the launch is kept lean on the host: the ctypes function and the stream
 getter are resolved once, the output is one allocation (``new_empty``),
 and the call passes plain integers (data pointers, the current stream's
 handle) without entering a device context.
+
+Both entry points are also ``torch.library`` ops, ``facejax::efm3_rows``
+and ``facejax::efm3_rows_bwd``, whose bodies are the launches above (a
+trace is of inference: the ops carry no autograd formula). Autograd is off
+in an op's body, so the backward op's CPU body is
+``_efm3_rows_bwd_written_out``, torch's derivatives written out (bit-equal
+to ``efm3_rows_bwd_plain``). Only a trace
+(``torch.export``, ``torch.compile``) takes them: an eager call launches
+directly, without the dispatcher's ~14 us.
 """
 
 import ctypes
@@ -54,6 +63,34 @@ def efm3_rows_bwd_plain(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
         xr = x.detach().requires_grad_(True)
         (dx,) = torch.autograd.grad(efm3_rows_plain(xr), xr, g)
     return dx
+
+
+def _max_bwd(a, b, g):
+    """``torch.maximum``'s derivative: ties split ``g`` in halves, NaN
+    passes it to both sides."""
+    half = torch.where(a == b, g / 2, g)
+    return half.masked_fill(a < b, 0), half.masked_fill(a > b, 0)
+
+
+def _min_bwd(a, b, g):
+    """``torch.minimum``'s derivative, as :func:`_max_bwd`."""
+    half = torch.where(a == b, g / 2, g)
+    return half.masked_fill(a > b, 0), half.masked_fill(a < b, 0)
+
+
+def _efm3_rows_bwd_written_out(x: torch.Tensor,
+                               g: torch.Tensor) -> torch.Tensor:
+    """:func:`efm3_rows_bwd_plain` with torch's derivatives of the nested
+    maximum / minimum written out, for the op's body, where autograd is
+    off. Bit-equal to autograd's, whose sum of the three slices' gradients
+    adds zeros (the ``+ 0.0``: a -0.0 comes out as +0.0)."""
+    t = x.shape[1] // 3
+    s0, s1, s2 = x[:, :t], x[:, t:2 * t], x[:, 2 * t:]
+    g01, g2a = _max_bwd(torch.maximum(s0, s1), s2, g[:, :t])
+    g0a, g1a = _max_bwd(s0, s1, g01)
+    h01, g2b = _min_bwd(torch.minimum(s0, s1), s2, g[:, t:])
+    g0b, g1b = _min_bwd(s0, s1, h01)
+    return torch.cat([g0a + g0b, g1a + g1b, g2a + g2b], dim=1) + 0.0
 
 
 @functools.cache
@@ -121,6 +158,8 @@ def efm3_rows_bwd(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     """The gradient of ``efm3_rows`` at ``x`` [rows, C] for the output
     gradient ``g`` [rows, 2C/3]: kernel ``efm3_bwd`` for CUDA tensors,
     :func:`efm3_rows_bwd_plain` for CPU tensors."""
+    if torch.compiler.is_compiling():
+        return efm3_rows_bwd_op(x, g)
     if require_cuda_or_cpu(x, "efm3_bwd"):
         return _launch_bwd(x, g)
     return efm3_rows_bwd_plain(x, g)
@@ -143,6 +182,34 @@ class EFM3Rows(torch.autograd.Function):
         return efm3_rows_bwd(x, g.to(x.dtype))
 
 
+@torch.library.custom_op("facejax::efm3_rows", mutates_args=())
+def efm3_rows_op(x: torch.Tensor) -> torch.Tensor:
+    """``efm3_rows`` as an op for a trace: the kernel for a CUDA tensor,
+    the plain version for a CPU one (any strides)."""
+    x = x.contiguous()
+    if x.is_cuda:
+        return _launch(x, *x.shape)
+    return efm3_rows_plain(x)
+
+
+@efm3_rows_op.register_fake
+def _(x):
+    return x.new_empty((x.shape[0], 2 * (x.shape[1] // 3)))
+
+
+@torch.library.custom_op("facejax::efm3_rows_bwd", mutates_args=())
+def efm3_rows_bwd_op(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """``efm3_rows_bwd`` as an op for a trace."""
+    if require_cuda_or_cpu(x, "efm3_bwd"):
+        return _launch_bwd(x, g)
+    return _efm3_rows_bwd_written_out(x, g)
+
+
+@efm3_rows_bwd_op.register_fake
+def _(x, g):
+    return torch.empty_like(x, memory_format=torch.contiguous_format)
+
+
 def efm3_rows(x: torch.Tensor) -> torch.Tensor:
     """``[rows, C] -> [rows, 2C/3]``: kernel B2 for a CUDA tensor, the
     plain version for a CPU tensor, through ``EFM3Rows`` where a gradient
@@ -154,6 +221,8 @@ def efm3_rows(x: torch.Tensor) -> torch.Tensor:
     rows, c = shape
     if c % 3:
         raise ValueError(f"channels must divide by 3, got {c}")
+    if torch.compiler.is_compiling():
+        return efm3_rows_op(x)
     if x.requires_grad and torch.is_grad_enabled():
         require_cuda_or_cpu(x, "efm3")
         return EFM3Rows.apply(x)

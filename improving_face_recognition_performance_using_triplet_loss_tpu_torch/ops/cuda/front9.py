@@ -17,6 +17,13 @@ the port of ``front_kernel.py::front9_reference``: ``reference_stem`` ->
 1x1 conv + mfm2 -> 3x3 SAME conv + mfm2 -> pool, computed in f32 from
 inputs rounded to x's dtype, each stage's output rounded to x's dtype where
 the Pallas kernel rounds it (equal to ``front9_reference`` in f32).
+
+``front9_chain`` is also the ``torch.library`` op ``facejax::front9_chain``
+(either dtype), which only a trace takes: an eager call launches directly.
+The op takes tensors only: the three convs as the list ``[conv1 kernel,
+conv1 bias, conv2a kernel, conv2a bias, conv2 kernel, conv2 bias]``
+(``PARAM_ORDER``, for the plain version) and the packed weights as the
+list of ``PACKED_ORDER`` (packed by the wrapper when not given).
 """
 
 from __future__ import annotations
@@ -39,6 +46,10 @@ tc_launches = LaunchCount("front9_bf16")  # bf16, csrc/front9_tc.cu
 PAIRS = 16
 # the only widths the bf16 kernel takes (csrc/front9_tc.cu C1, C2A, C2)
 TC_WIDTHS = (96, 96, 192)
+# the op's tensor lists: the flax tree's leaves, and the packed weights
+PARAM_ORDER = (("conv1", "kernel"), ("conv1", "bias"), ("conv2a", "kernel"),
+               ("conv2a", "bias"), ("conv2", "kernel"), ("conv2", "bias"))
+PACKED_ORDER = ("w1", "b1", "w2a", "b2a", "w2", "b2")
 
 
 def _widths(params) -> tuple[int, int, int]:
@@ -275,8 +286,38 @@ def front9_chain(x: torch.Tensor, params: dict,
     :func:`pack_front9_weights` for x's dtype, packed here when None), the
     plain version for a CPU tensor."""
     _check_args(x, params)
+    if torch.compiler.is_compiling():
+        if packed is None:
+            packed = pack_front9_weights(params, x.dtype)
+        return front9_chain_op(x, [params[n][k] for n, k in PARAM_ORDER],
+                               [packed[n] for n in PACKED_ORDER])
     if require_cuda_or_cpu(x, "front9"):
         if packed is None:
             packed = pack_front9_weights(params, x.dtype)
         return _launch(x, packed)
     return front9_plain(x, params)
+
+
+def _tree(leaves) -> dict:
+    params: dict = {}
+    for (name, key), t in zip(PARAM_ORDER, leaves):
+        params.setdefault(name, {})[key] = t
+    return params
+
+
+@torch.library.custom_op("facejax::front9_chain", mutates_args=())
+def front9_chain_op(x: torch.Tensor, params: list[torch.Tensor],
+                    packed: list[torch.Tensor]) -> torch.Tensor:
+    """``front9_chain`` as an op for a trace (any strides): ``params`` in
+    ``PARAM_ORDER``, ``packed`` in ``PACKED_ORDER`` for x's dtype."""
+    tree = _tree(params)
+    if not require_cuda_or_cpu(x, "front9"):
+        return front9_plain(x, tree).contiguous()
+    return _launch(x, dict(zip(PACKED_ORDER, packed), widths=_widths(tree),
+                           dtype=x.dtype))
+
+
+@front9_chain_op.register_fake
+def _(x, params, packed):
+    return x.new_empty((x.shape[0], x.shape[1] // 4, x.shape[2] // 4,
+                        params[4].shape[3] // 2))

@@ -11,6 +11,10 @@ merge of the pool ranges), which never writes the ``[B, N]`` distance
 matrix; a CPU tensor runs ``semi_hard_mining_plain``,
 ``pairwise_sq_l2`` followed by ``mine_semi_hard_negative``. The result is
 an integer index, so there is no gradient and no backward kernel.
+
+``semi_hard_mining`` is also the ``torch.library`` op
+``facejax::semi_hard_mining``, which only a trace takes: an eager call
+launches directly.
 """
 
 from __future__ import annotations
@@ -102,6 +106,24 @@ def semi_hard_mining(anc: torch.Tensor, pos_sq: torch.Tensor,
                          "pool_labels of shape [N]")
     if n == 0 or anc.shape[1] == 0:
         raise ValueError("semi_hard_mining needs a non-empty pool and D > 0")
+    if torch.compiler.is_compiling():
+        return semi_hard_mining_op(anc, pos_sq, anc_labels, pool, pool_labels)
     if require_cuda_or_cpu(anc, "semi_hard_mining"):
         return _launch(anc, pos_sq, anc_labels, pool, pool_labels)
     return semi_hard_mining_plain(anc, pos_sq, anc_labels, pool, pool_labels)
+
+
+@torch.library.custom_op("facejax::semi_hard_mining", mutates_args=())
+def semi_hard_mining_op(anc: torch.Tensor, pos_sq: torch.Tensor,
+                        anc_labels: torch.Tensor, pool: torch.Tensor,
+                        pool_labels: torch.Tensor) -> torch.Tensor:
+    """``semi_hard_mining`` as an op for a trace (any strides)."""
+    if require_cuda_or_cpu(anc, "semi_hard_mining"):
+        return _launch(anc, pos_sq, anc_labels, pool, pool_labels)
+    return semi_hard_mining_plain(anc, pos_sq, anc_labels, pool,
+                                  pool_labels)
+
+
+@semi_hard_mining_op.register_fake
+def _(anc, pos_sq, anc_labels, pool, pool_labels):
+    return anc.new_empty((anc.shape[0],), dtype=torch.int32)

@@ -9,6 +9,10 @@ port of the JAX package's ``ops/boxes.py::nms_mask_jax``, which sorts the
 way the JAX package does: descending score, ties broken by the highest
 original row (a stable ascending sort of the negated reversed scores,
 mapped back).
+
+``nms_mask_batched`` is also the ``torch.library`` op
+``facejax::nms_mask_batched``, which only a trace takes: an eager call
+launches directly.
 """
 
 from __future__ import annotations
@@ -166,6 +170,22 @@ def nms_mask_batched(boxes: torch.Tensor, threshold: float,
         raise ValueError(f"method must be 'Union' or 'Min', got {method!r}")
     if boxes.ndim != 3 or boxes.shape[-1] != 5:
         raise ValueError(f"expected [S, N, 5] boxes, got {tuple(boxes.shape)}")
+    if torch.compiler.is_compiling():
+        return nms_mask_batched_op(boxes, threshold, method)
     if require_cuda_or_cpu(boxes, "nms"):
         return _launch(boxes, threshold, method)
     return nms_mask_plain(boxes, threshold, method)
+
+
+@torch.library.custom_op("facejax::nms_mask_batched", mutates_args=())
+def nms_mask_batched_op(boxes: torch.Tensor, threshold: float,
+                        method: str) -> torch.Tensor:
+    """``nms_mask_batched`` as an op for a trace (any strides)."""
+    if require_cuda_or_cpu(boxes, "nms"):
+        return _launch(boxes, threshold, method)
+    return nms_mask_plain(boxes.contiguous(), threshold, method)
+
+
+@nms_mask_batched_op.register_fake
+def _(boxes, threshold, method):
+    return boxes.new_empty(boxes.shape[:2], dtype=torch.bool)

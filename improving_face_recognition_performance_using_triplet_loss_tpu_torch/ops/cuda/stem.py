@@ -18,6 +18,11 @@ C2]`` or ``[C/2, C2]``, bias2 ``[C2]`` -> ``[B, H/2, W/2, C2/2]``. Its plain
 version ``stem2_conv_plain`` is ``reference_stem`` followed by the 1x1 conv
 and mfm2, computed in f32 from inputs rounded to x's dtype, with the stem
 rounded to x's dtype where the Pallas kernel rounds it.
+
+Both are also ``torch.library`` ops, ``facejax::stem_conv_maxout_pool``
+(either dtype: the op launches the kernel of x's dtype) and
+``facejax::stem2_conv``, which only a trace takes: an eager call launches
+directly.
 """
 
 from __future__ import annotations
@@ -129,9 +134,28 @@ def stem_conv_maxout_pool(x: torch.Tensor, w: torch.Tensor,
     """Fused stem: kernel B3 for a CUDA tensor (f32 on the CUDA cores,
     bf16 on the tensor cores), the plain version for a CPU tensor."""
     _check_args(x, w, bias, maxout)
+    if torch.compiler.is_compiling():
+        return stem_conv_maxout_pool_op(x, w, bias, maxout)
     if require_cuda_or_cpu(x, "stem"):
         return _launch(x, w, bias, maxout)
     return stem_conv_maxout_pool_plain(x, w, bias, maxout=maxout)
+
+
+@torch.library.custom_op("facejax::stem_conv_maxout_pool", mutates_args=())
+def stem_conv_maxout_pool_op(x: torch.Tensor, w: torch.Tensor,
+                             bias: torch.Tensor, maxout: int) -> torch.Tensor:
+    """``stem_conv_maxout_pool`` as an op for a trace (any strides)."""
+    if require_cuda_or_cpu(x, "stem"):
+        return _launch(x, w, bias, maxout)
+    return stem_conv_maxout_pool_plain(x, w, bias,
+                                       maxout=maxout).contiguous()
+
+
+@stem_conv_maxout_pool_op.register_fake
+def _(x, w, bias, maxout):
+    c = w.shape[3]
+    c_out = c // 2 if maxout == 2 else 2 * (c // 3)
+    return x.new_empty((x.shape[0], x.shape[1] // 2, x.shape[2] // 2, c_out))
 
 
 def _check_stem2_args(x, w, bias, w2, bias2):
@@ -193,6 +217,23 @@ def stem2_conv(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
     """Fused stem + 1x1 conv + mfm2: kernel B4 for a CUDA tensor, the plain
     version for a CPU tensor."""
     _check_stem2_args(x, w, bias, w2, bias2)
+    if torch.compiler.is_compiling():
+        return stem2_conv_op(x, w, bias, w2, bias2)
     if require_cuda_or_cpu(x, "stem2"):
         return _launch_stem2(x, w, bias, w2, bias2)
     return stem2_conv_plain(x, w, bias, w2, bias2)
+
+
+@torch.library.custom_op("facejax::stem2_conv", mutates_args=())
+def stem2_conv_op(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
+                  w2: torch.Tensor, bias2: torch.Tensor) -> torch.Tensor:
+    """``stem2_conv`` as an op for a trace (any strides)."""
+    if require_cuda_or_cpu(x, "stem2"):
+        return _launch_stem2(x, w, bias, w2, bias2)
+    return stem2_conv_plain(x, w, bias, w2, bias2).contiguous()
+
+
+@stem2_conv_op.register_fake
+def _(x, w, bias, w2, bias2):
+    return x.new_empty((x.shape[0], x.shape[1] // 2, x.shape[2] // 2,
+                        w2.shape[-1] // 2))

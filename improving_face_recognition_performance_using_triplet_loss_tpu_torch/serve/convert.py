@@ -1,8 +1,8 @@
 """Carry weights between the JAX package and the port.
 
 ``from_jax_params`` turns what the JAX package holds or writes into the
-port's modules: a flax ``EFMNet342``, ``LightCNN9`` or ``LightCNN29`` params
-tree (or its ``{"params": ..., "batch_stats": ...}`` variables), a JAX
+port's modules: a flax ``EFMNet342``, ``LightCNN9``, ``LightCNN29`` or
+``DeepFace`` params tree (or its ``{"params": ..., "batch_stats": ...}`` variables), a JAX
 export directory (``weights.npz`` + ``manifest.json``), or an MTCNN
 ``{layer: {weights, biases, alpha}}`` dict. ``export_model`` writes a port
 model back in the export format, with LightCNN29's ``batch_stats``.
@@ -20,6 +20,7 @@ import torch
 from ..device import resolve_device
 from ..models import model_by_name
 from ..models import mtcnn as nets
+from ..models.deepface import deepface_side
 from ..models.heads import LinearHead
 from ..models.lightcnn import square_side
 from .export import export_params, load_exported_params
@@ -31,6 +32,7 @@ _MTCNN_HEADS = {"conv4-1": nets.PNet, "conv5-1": nets.RNet,
 _NETS = {"stage2_res": ("efmnet342", 174, 32), "conv2a": ("lightcnn9", 128, 16),
          "group1": ("lightcnn29", 174, 32)}
 _STEMS = {"efmnet342": "conv1", "lightcnn9": "conv1", "lightcnn29": "group1"}
+_DEEPFACE = ("c1", "c3", "l4", "l5", "l6", "f7", "f8")
 
 
 def from_jax_params(src, *, dtype: torch.dtype = torch.float32, device=None,
@@ -39,12 +41,14 @@ def from_jax_params(src, *, dtype: torch.dtype = torch.float32, device=None,
     (``cuda`` unless given).
 
     ``src`` is an export directory, a flax ``EFMNet342`` / ``LightCNN9`` /
-    ``LightCNN29`` params tree (or ``{"params": tree, "batch_stats":
+    ``LightCNN29`` / ``DeepFace`` params tree (or ``{"params": tree, "batch_stats":
     stats}``), or an MTCNN det*.npy-layout dict, as numpy or JAX arrays.
     The net is told apart by its tree's keys. ``dtype`` is the compute
     dtype of an embedding net (MTCNN nets stay float32, as in the JAX
     package). The input size comes from an export's manifest, else from
-    ``input_hw``, else from fc1's fan-in (a square input)."""
+    ``input_hw``, else from fc1's (DeepFace: f7's) fan-in (a square
+    input). DeepFace is told by its ``c1 / c3 / l4 / l5 / l6 / f7 / f8``
+    tree."""
     if isinstance(src, (str, os.PathLike)):
         params, stats, manifest = load_exported_params(os.fspath(src))
         inp = manifest["input"]
@@ -57,12 +61,18 @@ def from_jax_params(src, *, dtype: torch.dtype = torch.float32, device=None,
     for head, cls in _MTCNN_HEADS.items():
         if head in src:
             return nets.build(cls, src, device=device)
+    if set(_DEEPFACE) <= set(src):
+        side = deepface_side(src)
+        return model_by_name(
+            "deepface", np.asarray(src["f8"]["kernel"]).shape[1],
+            input_hw=tuple(input_hw or (side, side)),
+            in_channels=np.asarray(src["c1"]["kernel"]).shape[2],
+            dtype=dtype, params=src, device=device)
     key = next((k for k in _NETS if k in src), None)
     if key is None:
         raise NotImplementedError(
             f"params tree with top-level keys {sorted(src)}: not a model "
-            "the port has (efmnet342, lightcnn9, lightcnn29; DeepFace is "
-            "queued in ROADMAP.md queue A, item 12)")
+            "the port has (efmnet342, lightcnn9, lightcnn29, deepface)")
     name, channels, stride = _NETS[key]
     if input_hw is None:
         side = square_side(src["fc1"]["kernel"], channels, stride)

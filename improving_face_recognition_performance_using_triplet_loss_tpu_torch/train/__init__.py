@@ -1,5 +1,6 @@
-"""Training: the backbone's and the head's steps, the optimizer
-families and their schedule, state, checkpoints and the epoch loop."""
+"""Training: the backbone's and the head's steps, the BEGAN-CS step, the
+optimizer families and their schedule, state, checkpoints and the epoch
+loop."""
 
 from .checkpoint import Checkpointer  # noqa: F401
 from .loops import (  # noqa: F401
@@ -7,7 +8,7 @@ from .loops import (  # noqa: F401
     train_loop,
 )
 from .optim import (  # noqa: F401
-    FAMILIES, OptimizerSpec, adam_factor, backbone_optimizer,
+    FAMILIES, OptimizerSpec, adam, adam_factor, backbone_optimizer,
     factor_schedule, get_ema_params, sgd_wd, with_param_ema,
 )
 from .state import TrainState, create_train_state  # noqa: F401

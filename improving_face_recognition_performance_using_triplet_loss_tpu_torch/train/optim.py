@@ -63,6 +63,7 @@ class OptimizerSpec:
     decay_every_steps: int = 0
     factor: float = 0.88
     stop_lr: float = 5e-15
+    b1: float = 0.9    # adam's first-moment decay
 
     def lr_at(self, step: int) -> float:
         """The rate of the update that follows ``step`` updates."""
@@ -79,7 +80,7 @@ class OptimizerSpec:
             return torch.optim.SGD(params, lr=lr, weight_decay=wd,
                                    momentum=0.9, nesterov=True)
         if self.family == "adam":
-            return torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999),
+            return torch.optim.Adam(params, lr=lr, betas=(self.b1, 0.999),
                                     eps=1e-8, weight_decay=wd)
         return OptaxRule(params, rule=self.family, lr=lr, weight_decay=wd)
 
@@ -157,6 +158,11 @@ def adam_factor(base_lr: float = 2.4e-4, decay_every_steps: int = 1,
     backbone optimizer; ``backbone_optimizer("adam", ...)``)."""
     return backbone_optimizer("adam", base_lr, decay_every_steps, factor,
                               stop_lr, weight_decay)
+
+
+def adam(lr: float, b1: float = 0.9) -> OptimizerSpec:
+    """optax's ``adam(lr, b1)``: a constant rate, no weight decay."""
+    return OptimizerSpec(lr=lr, weight_decay=0.0, family="adam", b1=b1)
 
 
 def sgd_wd(lr: float = 2.4e-4, weight_decay: float = 1e-5) -> OptimizerSpec:

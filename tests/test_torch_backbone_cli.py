@@ -155,8 +155,7 @@ def test_train_final_on_the_export(run, store, tmp_path):
 
 
 @pytest.mark.parametrize("flag,item", [
-    (["--data-parallel"], "item 10"), (["--class-parallel", "2"], "item 10"),
-    (["--model", "deepface"], "item 12")])
+    (["--data-parallel"], "item 10"), (["--class-parallel", "2"], "item 10")])
 def test_unported_flags_exit_naming_their_item(flag, item):
     with pytest.raises(SystemExit, match=item):
         train_backbone.main(["--synthetic", "--device", "cpu", *flag])

@@ -194,9 +194,10 @@ def test_extract_features_pads_and_refuses(tmp_path):
     q4, *_ = extract_features(net, u8, batch_size=4, int8=True)
     assert q4.shape == f4.shape
     assert (q4 * f4).sum(1).min() >= 0.999
-    with pytest.raises(SystemExit, match="item 12"):
-        tcli.main(["--synthetic", "--model", "deepface", "--device", "cpu",
-                   "--out-dir", str(tmp_path)])
+    # DeepFace is ported: --synthetic gives it 3-channel 72x72 faces
+    out = tcli.main(["--synthetic", "--model", "deepface", "--device", "cpu",
+                     "--batch-size", "32", "--out-dir", str(tmp_path)])
+    assert out["valid"].features.shape == (32, 4096)
 
 
 def test_synthetic_extract_sizes_from_manifest(jax_export, tmp_path):

@@ -8,6 +8,7 @@ only when they launch). With CUDA absent, an entry point called without
 ``device="cpu"`` raises instead of falling back to the CPU.
 """
 
+import json
 import os
 import subprocess
 import sys
@@ -21,6 +22,7 @@ from improving_face_recognition_performance_using_triplet_loss_tpu_torch import 
 from improving_face_recognition_performance_using_triplet_loss_tpu_torch.cli import (
     align,
     eval_cos,
+    export_aot,
     extract_features,
     identify,
     import_params,
@@ -28,6 +30,7 @@ from improving_face_recognition_performance_using_triplet_loss_tpu_torch.cli imp
     lfw_eval,
     lfw_run,
     serve_demo,
+    train_began,
     train_head,
 )
 from improving_face_recognition_performance_using_triplet_loss_tpu_torch.detect import (
@@ -44,6 +47,9 @@ from improving_face_recognition_performance_using_triplet_loss_tpu_torch.detect.
 from improving_face_recognition_performance_using_triplet_loss_tpu_torch.detect.device_cascade import (
     DeviceCascade,
 )
+from improving_face_recognition_performance_using_triplet_loss_tpu_torch.models import (
+    model_by_name,
+)
 from improving_face_recognition_performance_using_triplet_loss_tpu_torch.models.efm_symbol import (
     build_efmnet342,
 )
@@ -51,6 +57,7 @@ from improving_face_recognition_performance_using_triplet_loss_tpu_torch.ops.qua
     quantize_lightcnn9_params,
 )
 from improving_face_recognition_performance_using_triplet_loss_tpu_torch.serve import (
+    aot,
     device_gallery,
     gallery,
     gallery_service,
@@ -115,7 +122,9 @@ def test_port_imports_without_jax_or_triton():
                  "cli.__main__", "cli.landmarks68", "detect.ert",
                  "detect.landmarks", "detect.dlib_import", "serve.export",
                  "ops.quantized", "ops.conv_backward", "eval.projector",
-                 "utils.profiling", "utils.cache"):
+                 "utils.profiling", "utils.cache", "serve.aot",
+                 "cli.export_aot", "models.deepface", "models.began_cs",
+                 "losses.began", "train.gan", "cli.train_began"):
         assert f"{PORT}.{name}" in mods, name
     assert int(out[1]) == len(mods) >= 20
 
@@ -134,7 +143,9 @@ def test_port_imports_without_jax_or_triton():
                                    "extract_features_int8", "landmarks68",
                                    "mtcnn_ert_detect",
                                    "quantize_lightcnn9_params",
-                                   "int8_embed_pipeline"])
+                                   "int8_embed_pipeline", "export_aot",
+                                   "train_began", "load_pipeline",
+                                   "load_compiled", "deepface"])
 def test_default_device_without_cuda_raises(monkeypatch, tmp_path, entry):
     import numpy as np
 
@@ -210,7 +221,24 @@ def test_default_device_without_cuda_raises(monkeypatch, tmp_path, entry):
             MTCNNDetector(device="cpu"), build_efmnet342(
                 4, image_size=32, device="cpu"), np.ones((1, 342)),
             frame_h=32, frame_w=32, int8_embed=True),
+        "export_aot": lambda: export_aot.main([
+            "--export-dir", str(tmp_path), "--dynamic-gallery-rows", "8",
+            "--frame-size", "32", "32", "--out", str(tmp_path / "a.pt2")]),
+        "train_began": lambda: train_began.main([
+            "--synthetic", "--epochs", "1", "--out-dir", str(tmp_path)]),
+        "load_pipeline": lambda: aot.load_pipeline(str(tmp_path / "a.pt2")),
+        "load_compiled": lambda: aot.load_compiled(str(tmp_path / "a.pt2")),
+        "deepface": lambda: model_by_name("deepface", 4, input_hw=(65, 65),
+                                          in_channels=3),
     }[entry]
+    if entry.startswith("load_"):
+        # a CUDA artifact's sidecar: the loader refuses it before reading
+        # the artifact
+        meta = {"platforms": ["cuda"], "platform": "cuda",
+                "format": aot.COMPILED_FORMAT,
+                "torch_version": torch.__version__}
+        with open(tmp_path / "a.pt2.json", "w") as f:
+            json.dump(meta, f)
     if entry == "landmarks68":
         ShapePredictor(mean_shape=np.zeros((68, 2), np.float32)).save(
             str(tmp_path / "sp.npz"))
@@ -223,7 +251,8 @@ def test_default_device_without_cuda_raises(monkeypatch, tmp_path, entry):
 
 
 @pytest.mark.parametrize("script", ["chip_smoke.py",
-                                    "tools/thesis_rehearsal_torch.py"])
+                                    "tools/thesis_rehearsal_torch.py",
+                                    "tools/perf_aot_coldstart_torch.py"])
 def test_port_scripts_load_without_jax(script):
     """The port's GPU smoke test and its thesis rehearsal load (their
     module bodies run) with JAX and the JAX package refused."""

@@ -330,5 +330,12 @@ def test_lightcnn9_front_paths_agree_on_cpu():
 
 
 def test_model_by_name_refuses_deepface():
-    with pytest.raises(SystemExit, match="A, item 12"):
-        model_by_name("deepface", 4, device="cpu")
+    """DeepFace is ported: ``model_by_name`` builds it (it used to exit
+    naming ROADMAP A12), and still refuses an input under its 65 px
+    floor."""
+    net = model_by_name("deepface", 4, input_hw=(65, 65), in_channels=3,
+                        device="cpu")
+    assert net.model_name == "deepface" and net.feature_dim == 4096
+    with pytest.raises(ValueError, match="65x65"):
+        model_by_name("deepface", 4, input_hw=(64, 64), in_channels=3,
+                      device="cpu")

@@ -17,6 +17,10 @@ a negative lies within 1e-5 of pos_sq.
 (c) One TF32 pass (hi only) fails that tolerance, so the check can tell a
 one-pass kernel from a three-pass one.
 
+(e) A model of the tensor cores' truncating float32 accumulation: over a
+whole 4,096-d dot it misses the tolerance on near-parallel rows; a fresh
+accumulator every 32-deep chunk (the kernel's) meets it.
+
 (d) A numpy model of the kernel's tiling: anchor tiles of 128 rows as two
 m64 warpgroups, pool tiles of 128 columns, the wgmma m64n128 accumulator
 fragment map (warpgroup, lane, register) -> (anchor, pool row), each
@@ -185,6 +189,66 @@ def test_1xtf32_fails_the_path_tolerance(normalized):
     bad, differ = path_violations(x, emulated_pick(*x, dots=dots_1xtf32),
                                   want)
     assert bad > 20 and differ >= bad
+
+
+def _rz_f32(v: torch.Tensor) -> torch.Tensor:
+    """float64 -> float32 rounded toward zero."""
+    r = v.float()
+    over = r.double().abs() > v.abs()
+    return torch.where(over, torch.nextafter(r, torch.zeros_like(r)), r)
+
+
+def dots_tc(a: torch.Tensor, p: torch.Tensor, chunk: int | None = KC):
+    """(e) A model of the tensor cores' accumulation: each wgmma k8 step
+    adds its exact TF32 products (hi.lo, lo.hi, hi.hi) to a float32
+    accumulator and truncates the sum toward zero. ``chunk``: the kernel
+    since the fix (ROADMAP C7), a fresh accumulator every ``chunk`` columns
+    whose sums meet in float32, rounded to nearest; None: one accumulator
+    over all of D, as the kernel had it."""
+    ah, al = split_tf32(a)
+    ph, pl = split_tf32(p)
+    acc = torch.zeros(a.shape[0], p.shape[0], dtype=torch.float64)
+    dot = torch.zeros(a.shape[0], p.shape[0])
+    for k0 in range(0, a.shape[1], 8):
+        if chunk and k0 and k0 % chunk == 0:
+            dot, acc = dot + acc.float(), torch.zeros_like(acc)
+        s = slice(k0, k0 + 8)
+        for x, y in ((ah, pl), (al, ph), (ah, ph)):
+            acc = _rz_f32(acc + x[:, s].double() @ y[:, s].double().T).double()
+    return dot + acc.float()
+
+
+def _near_parallel_case(seed=0, b=64, n=128, d=4096, noise=0.3):
+    """L2-normalized ReLU rows around one direction (non-negative, dots
+    ~0.9, as DeepFace's 4,096-d features: every partial sum of a dot
+    grows, so the accumulator is large for most steps), 16 identities,
+    pos_sq at the 30th percentile of each anchor's negatives."""
+    rng = np.random.default_rng(seed)
+    base = rng.normal(size=(1, d))
+
+    def rows(k):
+        x = np.maximum(base + noise * rng.normal(size=(k, d)), 0.0)
+        return tdist.l2_normalize(T(x.astype(np.float32)))
+
+    anc, pool = rows(b), rows(n)
+    al, pl = T(np.arange(b) % 16), T(np.arange(n) % 16)
+    sq = tdist.pairwise_sq_l2(anc, pool)
+    ps = torch.where(al[:, None] != pl[None, :], sq,
+                     torch.nan).nanquantile(0.3, dim=1)
+    return [anc, ps, al, pool, pl]
+
+
+def test_truncating_accumulator_needs_the_chunk_flush():
+    """(e) C7: on near-parallel 4,096-d rows one truncating accumulator
+    over D moves distances beyond the path tolerance (the picks the card
+    made on DeepFace's features); a fresh accumulator a chunk meets it."""
+    x = _near_parallel_case()
+    want = tkernel.semi_hard_mining_plain(*x)
+    bad, _ = path_violations(x, emulated_pick(
+        *x, dots=lambda a, p: dots_tc(a, p, None)), want)
+    assert bad > 10
+    bad, differ = path_violations(x, emulated_pick(*x, dots=dots_tc), want)
+    assert bad == 0, f"{bad} picks outside the tolerance ({differ} differ)"
 
 
 # ------------------------------------------------ (d) the index model

@@ -19,12 +19,14 @@ from improving_face_recognition_performance_using_triplet_loss_tpu_torch import 
 from improving_face_recognition_performance_using_triplet_loss_tpu_torch.cli import (
     align,
     eval_cos,
+    export_aot,
     extract_features,
     identify,
     import_params,
     lfw_eval,
     lfw_run,
     serve_demo,
+    train_began,
     train_head,
 )
 from improving_face_recognition_performance_using_triplet_loss_tpu_torch.models import (
@@ -88,7 +90,22 @@ def _runs(tmp_path, entry):
         _lfw_inputs(tmp_path)
     if entry in SERVING_ENTRIES:
         _serving_inputs(tmp_path)
+    if entry == "export_aot":
+        from improving_face_recognition_performance_using_triplet_loss_tpu_torch.serve.convert import (
+            export_model,
+        )
+
+        export_model(os.path.join(out, "export"),
+                     build_efmnet342(4, image_size=32, device="cpu"))
     return {
+        "export_aot": lambda: export_aot.main([
+            "--export-dir", os.path.join(out, "export"),
+            "--dynamic-gallery-rows", "4", "--frame-size", "32", "32",
+            "--out", os.path.join(out, "a.pt2"), "--device", "cpu"]),
+        "train_began": lambda: train_began.main([
+            "--synthetic", "--synthetic-size", "16", "--epochs", "1",
+            "--batch-size", "128", "--filters", "4", "--h-dim", "8",
+            "--device", "cpu", "--out-dir", out]),
         "serve_demo": lambda: serve_demo.main([
             "--streams", "1", "--frames", "1", "--frame-size", "48", "48",
             "--image-size", "32", "--identities", "2", "--device", "cpu",
@@ -134,7 +151,8 @@ def _runs(tmp_path, entry):
 
 @pytest.mark.parametrize("entry", ["serve_demo", "extract_features",
                                    "train_head", "eval_cos", *LFW_ENTRIES,
-                                   *SERVING_ENTRIES])
+                                   *SERVING_ENTRIES, "export_aot",
+                                   "train_began"])
 def test_cli_turns_tf32_off(entry, tmp_path):
     saved = (torch.backends.cudnn.allow_tf32,
              torch.backends.cuda.matmul.allow_tf32)
