@@ -94,6 +94,35 @@ before it and read just after:
   the default widths; both ``--mining semi_hard_fused`` (B1 once a step,
   its picks held to the plain version's), losses finite and falling,
   steps/s and peak memory; B1 on exact rows at DeepFace's 4,096 width.
+- data and class parallelism (``parallel``): each CLI's parallel flag run
+  plainly (a process group of one, NCCL) and on several ranks under
+  ``torch.distributed.run`` sharing the card over gloo, each rank a
+  process of ``tools/parallel_ranks_torch.py``. ``train_head
+  --data-parallel`` at the head cell on 2 ranks (8,192 local rows, B1 at
+  8192 x 32768 over the gathered pool): losses within 1e-5 of the world-1
+  run's, every pick against the plain version's. ``train_backbone
+  --class-parallel 3`` (LightCNN29 at 128x128, 55,005 classes, 18,335 a
+  rank, 3 steps) against ``--data-parallel`` run plainly: the first
+  step's loss within 1e-5, its every gradient and the three ``fc2``
+  blocks put together within ``BACKBONE_GRAD_RTOL``, the updated ``fc2``
+  blocks within 1e-6 of the world-1 ``fc2`` (the later steps, from
+  weights that differ by rounding, which Adam's sign-like first updates
+  magnify, are reported). ``train_backbone --data-parallel`` on 2 ranks
+  (the same LightCNN29, dropout and the triplet term on) against a
+  world-1 run whose step computes what the 2 ranks compute in one
+  process (each rank's half embedded on its own, with its dropout masks
+  and BatchNorm statistics, then mined and lost over the concatenated
+  pool: ``parallel_ranks_torch.ranks_in_one_process``) the same way,
+  with the gap to the plain world-1 run reported. The slice's 16 streams through the
+  gallery-sharded pipeline on 2 ranks (1,000 rows sharded) against the
+  unsharded pipeline: index equal, similarity within 1e-5 of the
+  unsharded pipeline run on the ranks' 8-stream batches (its gap to the
+  16-stream batch, which cuDNN rounds otherwise, reported).
+  ``extract_features --data-parallel`` run plainly (LightCNN29, B3 and
+  B2) against the plain run. B1, B2, ``efm3_bwd``, B3 and B5 launch on
+  every rank, and each rank holds its calls to the plain versions; a line
+  a rank gives its backend, launches, seconds and peak GiB. Gloo on one
+  shared card says nothing of NCCL's scaling.
 
 The efm3 phase also holds the backward kernel ``efm3_bwd`` bit for bit to
 the plain version's autograd (every shape of a LightCNN29 training step,
@@ -160,7 +189,8 @@ PATH_KERNELS = {"slice": ("nms", "stem", "efm3"), "head": ("mining",),
                 "lfw": ("nms", "stem_bf16", "efm3", "front9_bf16"),
                 "live": ("nms", "stem", "efm3"),
                 "int8": ("nms", "stem", "efm3", "stem2", "mining",
-                         "efm3_bwd")}
+                         "efm3_bwd"),
+                "parallel": ("mining", "efm3", "efm3_bwd", "stem", "nms")}
 
 
 def slice_argv(frames: int, device: str) -> list[str]:
@@ -3947,13 +3977,316 @@ def phase_models(ctx):
     return {"ok": all(checks.values()), "checks": checks, **rep}
 
 
+# the parallel slice (``parallel``): the runs on several ranks, each rank
+# a process of ``tools/parallel_ranks_torch.py`` under the launcher, all
+# of them on the one card over gloo: the head's 2 data ranks, the
+# class-parallel LightCNN29's data 1 x model 3 (55,005 = 3 * 5 * 19 * 193:
+# 3 divides it, 2 does not), LightCNN29's 2 data ranks, the
+# gallery-sharded serving's 2 gallery ranks
+PARALLEL_RANKS = {"head": 2, "cp": 3, "dp": 2, "serve": 2}
+# losses of a multi-rank run against the world-1 run's from the same
+# state (the head's every step; a backbone run's first)
+PARALLEL_LOSS_RTOL = 1e-5
+# the updated fc2 after a backbone run's first step against the world-1
+# run's (absolute: Adam's first update is about lr x sign(gradient))
+PARALLEL_FC2_ATOL = 1e-6
+
+
+def _launch_ranks(job: str, ranks: int, out: str, *args,
+                  timeout: float = 600.0) -> tuple[list, bool, float]:
+    """``tools/parallel_ranks_torch.py JOB`` on ``ranks`` processes under
+    ``torch.distributed.run``: each rank's report (printed, one line a
+    rank), whether every rank ran and passed its checks, and the wall
+    seconds of the launch."""
+    os.makedirs(out, exist_ok=True)
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           f"--nproc-per-node={ranks}",
+           os.path.join(ROOT, "tools", "parallel_ranks_torch.py"), job, out,
+           *args]
+    t0 = time.perf_counter()
+    run = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                         timeout=timeout)
+    seconds = time.perf_counter() - t0
+    reports = []
+    for r in range(ranks):
+        path = os.path.join(out, f"rank{r}.json")
+        if os.path.exists(path):
+            with open(path) as f:
+                reports.append(json.load(f))
+    for rep in reports:
+        emit({"parallel_rank": {k: rep[k] for k in (
+            "job", "rank", "world", "backend", "device", "launches",
+            "seconds", "peak_gib", "ok")}})
+    ok = run.returncode == 0 and len(reports) == ranks and all(
+        rep["ok"] for rep in reports)
+    if not ok:
+        print(run.stdout[-3000:], run.stderr[-6000:], file=sys.stderr)
+    return reports, ok, seconds
+
+
+def _trimmed(reports, keys) -> list[dict]:
+    """``keys`` of each rank's report (those it has)."""
+    return [{k: r[k] for k in keys if k in r} for r in reports]
+
+
+def _world1_backbone(ctx, store, model, out, reference, ranks=0):
+    """``train_backbone --data-parallel`` run plainly (an NCCL group of
+    one) with :func:`parallel_ranks_torch.backbone_argv`'s arguments, its
+    step standing in for ``ranks`` data ranks when ``ranks`` is given
+    (:func:`parallel_ranks_torch.ranks_in_one_process`): its launch
+    counts, and its per-step gradients, updated ``fc2`` and losses saved
+    to ``reference`` for the ranks to hold theirs to."""
+    import torch
+
+    import parallel_ranks_torch as tool
+
+    from improving_face_recognition_performance_using_triplet_loss_tpu_torch.cli import (
+        train_backbone,
+    )
+
+    grads, fc2_after = [], []
+    undo = [tool.record_grads(grads, fc2_after)]
+    if ranks:
+        undo.append(tool.ranks_in_one_process(ranks))
+    try:
+        for c in ctx["counters"].values():
+            c.reset()
+        state, hist = train_backbone.main(tool.backbone_argv(
+            store, model, "dp", out))
+        torch.cuda.synchronize()
+        launches = {k: ctx["counters"][k].count
+                    for k in PATH_KERNELS["parallel"]}
+    finally:
+        for u in undo:
+            u()
+    losses = [s["loss"] for h in hist for s in h.steps]
+    torch.save({"grads": grads, "losses": losses, "fc2_after": fc2_after},
+               reference)
+    return launches, losses, state.step
+
+
+def _grad_gaps(reports, parts: int) -> list[dict]:
+    """Per step, the worst per-leaf relative gap over the ranks, and the
+    ``fc2`` gradient's relative gap with its ``parts`` blocks put
+    together."""
+    out = []
+    for i in range(len(reports[0]["steps"])):
+        worst = max((rep["steps"][i] for rep in reports),
+                    key=lambda s: s["max_grad_rel_gap"])
+        step = {"max_grad_rel_gap": worst["max_grad_rel_gap"],
+                "at": worst["at"]}
+        if parts > 1:
+            diff = sum(rep["fc2_block_sq"][i][0] for rep in reports)
+            ref = sum(rep["fc2_block_sq"][i][1] for rep in reports)
+            step["fc2_concat_rel_gap"] = (diff / ref) ** 0.5
+        if "other_max_grad_rel_gap" in worst:
+            step["other_max_grad_rel_gap"] = max(
+                rep["steps"][i]["other_max_grad_rel_gap"] for rep in reports)
+        out.append(step)
+    return out
+
+
+def phase_parallel(ctx):
+    """Data and class parallelism on the card (module docstring): each
+    multi-rank run held to the world-1 run of the same CLI, each rank's
+    kernel calls to their plain versions, launches on every rank."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    from improving_face_recognition_performance_using_triplet_loss_tpu_torch.cli import (
+        extract_features,
+        train_head,
+    )
+    from improving_face_recognition_performance_using_triplet_loss_tpu_torch.data import (
+        save_feature_store,
+        save_image_store,
+        save_image_store_mmap,
+        split_identities,
+        synthetic_features,
+    )
+
+    checks, rep = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        p = lambda *a: os.path.join(tmp, *a)  # noqa: E731
+
+        # (1) train_head --data-parallel: world 1, then 2 ranks
+        feats, labels = synthetic_features(
+            num_ids=HEAD_IDS, per_id=HEAD_PER_ID, dim=FEAT_DIM, seed=0)
+        train_mask, test_mask = split_identities(labels, 0.7)
+        for name, mask in (("train", train_mask), ("test", test_mask)):
+            save_feature_store(p(f"{name}.npz"), feats[mask], labels[mask])
+        for c in ctx["counters"].values():
+            c.reset()
+        t0 = time.perf_counter()
+        _, hist = train_head.main([
+            "--features", p("train.npz"), "--test-features", p("test.npz"),
+            "--batch-size", str(HEAD_BATCH), "--epochs", str(HEAD_EPOCHS),
+            "--mining", "semi_hard_fused", "--device", "cuda",
+            "--data-parallel", "--out-dir", p("head1")])
+        torch.cuda.synchronize()
+        head_w1 = {"seconds": time.perf_counter() - t0,
+                   "launches": read_launches(ctx, "parallel")}
+        w1 = [s["loss"] for h in hist for s in h.steps]
+        heads, ok, secs = _launch_ranks("head", PARALLEL_RANKS["head"],
+                                        p("head2"), p("train.npz"),
+                                        p("test.npz"))
+        checks["head_ranks_ran_and_held_b1"] = ok
+        gaps = [max(abs(a - b) / abs(b) for a, b in zip(r["losses"], w1))
+                for r in heads] or [float("inf")]
+        checks["head_losses_rtol_1e-5_vs_world1"] = ok and all(
+            len(r["losses"]) == len(w1) for r in heads) and max(
+                gaps) <= PARALLEL_LOSS_RTOL
+        checks["head_b1_on_every_rank"] = ok and all(
+            r["launches"]["mining"] == r["b1_calls"] > 0 for r in heads)
+        rep["head"] = {"world1": head_w1, "world1_losses": w1,
+                       "launch_seconds": secs, "max_loss_rel_gap": max(gaps),
+                       "ranks": _trimmed(heads, (
+                           "launches", "seconds", "peak_gib", "b1_shapes",
+                           "b1_differing", "b1_unexplained"))}
+
+        # (2) --class-parallel 3 (LightCNN29, 55,005 classes) against
+        # --data-parallel run plainly, the same steps of an .npz store
+        # (every rank draws the world-1 run's global batches)
+        faces, classes = backbone_faces(3 * BACKBONE_PAIRS, BACKBONE_SIDE,
+                                        seed=0)
+        save_image_store(p("bb128.npz"), faces, classes)
+        ref = p("ref_lightcnn29.pt")
+        w1_launches, w1_losses, w1_steps = _world1_backbone(
+            ctx, p("bb128.npz"), "lightcnn29", p("bbw1"), ref)
+        cps, ok, secs = _launch_ranks("backbone", PARALLEL_RANKS["cp"],
+                                      p("cp"), p("bb128.npz"), "lightcnn29",
+                                      f"cp{PARALLEL_RANKS['cp']}", ref)
+        checks["cp_ranks_ran_and_held_b1_b2_efm3_bwd"] = ok
+        rep["class_parallel"] = {"ranks": _trimmed(cps, (
+            "ok", "launches", "seconds", "peak_gib", "losses",
+            "fc2_max_abs_gap_after_step", "b1_differing", "b1_unexplained",
+            "b2_calls_held", "b2_bit_equal", "efm3_bwd_calls_held",
+            "efm3_bwd_bit_equal", "steps"))}
+        if ok:
+            steps = _grad_gaps(cps, PARALLEL_RANKS["cp"])
+            checks["cp_first_step_grads_rtol_vs_world1"] = (
+                steps[0]["max_grad_rel_gap"] <= BACKBONE_GRAD_RTOL
+                and steps[0]["fc2_concat_rel_gap"] <= BACKBONE_GRAD_RTOL)
+            checks["cp_fc2_blocks_concat_equal_world1_fc2"] = max(
+                r["fc2_max_abs_gap_after_step"][0]
+                for r in cps) <= PARALLEL_FC2_ATOL
+            checks["cp_fc2_block_is_a_third"] = all(
+                r["fc2_local_shape"][0] * PARALLEL_RANKS["cp"]
+                == BACKBONE_CLASSES for r in cps)
+            # the first step starts from the world-1 run's state; later
+            # ones from weights that differ by rounding (reported)
+            checks["cp_first_step_loss_rtol_1e-5_vs_world1"] = all(
+                abs(r["losses"][0] - w1_losses[0])
+                <= PARALLEL_LOSS_RTOL * abs(w1_losses[0]) for r in cps)
+            checks["cp_b1_b2_efm3_bwd_on_every_rank"] = all(
+                r["launches"]["mining"] == w1_steps
+                and r["launches"]["efm3"] == w1_launches["efm3"]
+                and r["launches"]["efm3_bwd"] == w1_launches["efm3_bwd"]
+                for r in cps)
+            rep["class_parallel"].update(
+                steps=steps, world1_launches=w1_launches,
+                world1_losses=w1_losses, launch_seconds=secs)
+        checks["world1_lightcnn29_launched_b1_b2_efm3_bwd"] = (
+            w1_launches["mining"] == w1_steps == 3
+            and w1_launches["efm3"] == 30 * w1_steps
+            and w1_launches["efm3_bwd"] == 30 * w1_steps)
+        read_launches_from(ctx, w1_launches)
+
+        # (3) --data-parallel over 2 ranks (the same LightCNN29 and
+        # store, dropout and the triplet term on) against a world-1 run
+        # whose step computes what the 2 ranks compute: each rank embeds
+        # its half on its own (its dropout masks, its BatchNorm batch),
+        # and mines and takes its loss over the concatenated pool; the
+        # gap to the plain world-1 run (one batch of 128 through the net,
+        # BatchNorm over all of it, rank 0's masks) is reported
+        dp_ref = p("ref_lightcnn29_dp.pt")
+        dp_w1, dp_losses, dp_steps = _world1_backbone(
+            ctx, p("bb128.npz"), "lightcnn29", p("dpw1"), dp_ref,
+            PARALLEL_RANKS["dp"])
+        dps, ok, secs = _launch_ranks("backbone", PARALLEL_RANKS["dp"],
+                                      p("dp"), p("bb128.npz"), "lightcnn29",
+                                      "dp", dp_ref, ref)
+        checks["dp_ranks_ran_and_held_b1_b2_efm3_bwd"] = ok
+        rep["data_parallel"] = {"ranks": _trimmed(dps, (
+            "ok", "launches", "seconds", "peak_gib", "losses",
+            "fc2_max_abs_gap_after_step", "b1_differing", "b1_unexplained",
+            "b2_calls_held", "b2_bit_equal", "efm3_bwd_calls_held",
+            "efm3_bwd_bit_equal", "steps"))}
+        if ok:
+            steps = _grad_gaps(dps, 1)
+            checks["dp_first_step_grads_rtol_vs_ranks_in_one_process"] = (
+                steps[0]["max_grad_rel_gap"] <= BACKBONE_GRAD_RTOL)
+            checks["dp_fc2_equal_ranks_in_one_process"] = max(
+                r["fc2_max_abs_gap_after_step"][0]
+                for r in dps) <= PARALLEL_FC2_ATOL
+            checks["dp_first_step_loss_rtol_1e-5_vs_ranks_in_one_process"] = (
+                all(abs(r["losses"][0] - dp_losses[0])
+                    <= PARALLEL_LOSS_RTOL * abs(dp_losses[0]) for r in dps))
+            checks["dp_b1_b2_efm3_bwd_on_every_rank"] = all(
+                r["launches"]["mining"] == dp_steps
+                and r["launches"]["efm3"] == w1_launches["efm3"]
+                and r["launches"]["efm3_bwd"] == w1_launches["efm3_bwd"]
+                for r in dps)
+            rep["data_parallel"].update(
+                steps=steps, world1_launches=dp_w1,
+                world1_losses=dp_losses, launch_seconds=secs)
+        # the stand-in mines once a rank a step
+        checks["dp_world1_b1_once_a_rank_a_step"] = (
+            dp_w1["mining"] == PARALLEL_RANKS["dp"] * dp_steps)
+
+        # (4) gallery-sharded 16-stream serving over 2 ranks
+        serves, ok, secs = _launch_ranks("serve", PARALLEL_RANKS["serve"],
+                                         p("serve"))
+        checks["serve_ranks_equal_unsharded_and_plain"] = ok
+        checks["serve_b5_b3_b2_on_every_rank"] = ok and all(
+            r["launches_sharded_dispatch"]["nms"] > 0
+            and r["launches_sharded_dispatch"]["stem"] == 1
+            and r["launches_sharded_dispatch"]["efm3"] > 0 for r in serves)
+        rep["serve"] = {"launch_seconds": secs, "ranks": _trimmed(serves, (
+            "launches_sharded_dispatch", "seconds", "peak_gib",
+            "max_similarity_gap", "max_similarity_gap_16_stream_batch",
+            "local_frames", "gallery_block", "found", "checks", "held"))}
+
+        # (5) extract_features --data-parallel run plainly: the same rows
+        # as the plain run, B3 once and B2 29 times a batch
+        faces_x, labels_x = backbone_faces(2 * EXTRACT_BATCH, BACKBONE_SIDE,
+                                           seed=3)
+        save_image_store_mmap(p("x128"), faces_x, labels_x)
+        argv = ["--train-images", p("x128"), "--model", "lightcnn29",
+                "--batch-size", str(EXTRACT_BATCH), "--device", "cuda"]
+        for c in ctx["counters"].values():
+            c.reset()
+        t0 = time.perf_counter()
+        dp = extract_features.main(argv + ["--data-parallel", "--out-dir",
+                                           p("xdp")])["train"]
+        torch.cuda.synchronize()
+        x_seconds = time.perf_counter() - t0
+        x_launches = read_launches(ctx, "parallel")
+        plain = extract_features.main(argv + ["--out-dir", p("xplain")])[
+            "train"]
+        checks["extract_dp_rows_equal_plain_run"] = bool(
+            np.array_equal(dp.features, plain.features)
+            and np.array_equal(dp.predictions, plain.predictions))
+        checks["extract_dp_b3_b2_per_batch"] = (
+            x_launches["stem"] == 2 and x_launches["efm3"] == 2 * 29)
+        rep["extract"] = {"launches": x_launches, "seconds": x_seconds}
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip()
+    return {"ok": all(checks.values()), "checks": checks, "card": smi,
+            **rep}
+
+
 PHASES = {"build": phase_build, "nms": phase_nms, "stem": phase_stem,
           "efm3": phase_efm3, "mining": phase_mining, "front9": phase_front9,
           "stem2": phase_stem2, "slice": phase_slice, "head": phase_head,
           "extract": phase_extract, "serve9": phase_serve9,
           "backbone": phase_backbone, "lfw": phase_lfw, "live": phase_live,
           "int8": phase_int8, "landmarks": phase_landmarks,
-          "aot": phase_aot, "models": phase_models}
+          "aot": phase_aot, "models": phase_models,
+          "parallel": phase_parallel}
 
 
 def pytorch_defaults(torch) -> None:

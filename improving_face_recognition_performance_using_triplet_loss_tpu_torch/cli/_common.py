@@ -2,7 +2,10 @@
 per-run logging setup, train_efm.py:171-175), typed config echo.
 
 A copy of the JAX package's ``cli/_common.py``; ``gallery_dtype`` names
-torch dtypes."""
+torch dtypes. Under a process group of several ranks only rank 0 writes
+(``is_writer``): the other ranks' logging goes nowhere and they get no
+cosine sink; ``local_batches`` hands a rank its block of each global
+batch."""
 
 from __future__ import annotations
 
@@ -13,8 +16,20 @@ import os
 import sys
 
 
+def is_writer() -> bool:
+    """Whether this process writes logs and files: rank 0, or no group."""
+    from ..parallel.distributed import process_info
+
+    return process_info()[0] == 0
+
+
 def setup_logging(out_dir: str | None, name: str) -> logging.Logger:
-    """Timestamped file + stdout logging; ``out_dir=None`` = stdout only."""
+    """Timestamped file + stdout logging; ``out_dir=None`` = stdout only.
+    A rank other than 0 logs nothing."""
+    if not is_writer():
+        logging.basicConfig(handlers=[logging.NullHandler()], force=True)
+        logging.getLogger().setLevel(logging.CRITICAL + 1)
+        return logging.getLogger(name)
     if out_dir is not None:
         os.makedirs(out_dir, exist_ok=True)
         stamp = datetime.datetime.now().strftime("%Y-%m-%d_%H%M%S")
@@ -32,6 +47,30 @@ def setup_logging(out_dir: str | None, name: str) -> logging.Logger:
         root.addHandler(handler)
     root.setLevel(logging.INFO)
     return logging.getLogger(name)
+
+
+def writer_sink(out_dir: str):
+    """The run's ``cosine_similarity.csv`` sink on the writing rank, None
+    on the others."""
+    from ..eval.cosine import CosineSimilaritySink
+
+    if not is_writer():
+        return None
+    return CosineSimilaritySink(os.path.join(out_dir,
+                                             "cosine_similarity.csv"))
+
+
+def local_batches(batches, mesh, axis: str = "data"):
+    """``(anchor, positive, labels)`` global batches -> this rank's block
+    of each along ``axis`` of ``mesh`` (the batches unchanged without a
+    mesh)."""
+    if mesh is None:
+        yield from batches
+        return
+    from ..parallel.mesh import local_block
+
+    for batch in batches:
+        yield tuple(local_block(x, mesh, axis) for x in batch)
 
 
 def log_config(log: logging.Logger, args) -> None:

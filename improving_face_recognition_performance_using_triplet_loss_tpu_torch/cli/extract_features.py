@@ -13,8 +13,10 @@ and EFMNet342 kernels B3 and B2. Runs on ``cuda`` unless ``--device cpu``
 is given. ``--int8`` runs every eligible conv as an exact int8 product
 (``ops/quantized.py``; LightCNN9's front then takes B4, never B6).
 ``--model deepface`` takes 3 channels (72x72 synthetic faces without an
-export, as the JAX CLI). ``--data-parallel`` is not ported yet
-(ROADMAP.md A10).
+export, as the JAX CLI). ``--data-parallel`` shards every batch over the
+ranks (``extract.make_sharded_extract_fn``: each rank embeds its block on
+its route's kernels, the rows gathered in rank order; ``--batch-size``
+must divide over the ranks); only rank 0 writes.
 
     python -m improving_face_recognition_performance_using_triplet_loss_tpu_torch.cli.extract_features \\
         --synthetic --model lightcnn9 --out-dir /tmp/extract
@@ -32,8 +34,6 @@ import numpy as np
 import torch
 
 from ..models import MODEL_NAMES
-
-_ROADMAP = "ROADMAP.md queue A"
 
 
 class Extracted(NamedTuple):
@@ -63,7 +63,9 @@ def build_parser():
     p.add_argument("--bf16", action="store_true",
                    help="compute in bfloat16")
     p.add_argument("--data-parallel", action="store_true",
-                   help="not ported yet (ROADMAP.md A10)")
+                   help="shard each batch over every rank (a plain run is "
+                        "one rank; launch with torch.distributed.run for "
+                        "more)")
     p.add_argument("--int8", action="store_true",
                    help="run every eligible conv as an exact int8 product "
                         "(per-channel weights, per-batch activations)")
@@ -71,12 +73,6 @@ def build_parser():
                    help="torch device (default cuda; 'cpu' runs the plain "
                         "PyTorch path)")
     return p
-
-
-def _check_args(args) -> None:
-    if args.data_parallel:
-        raise SystemExit("--data-parallel is not ported; data parallelism "
-                         f"is queued in {_ROADMAP}, item 10")
 
 
 def _load_splits(args) -> dict:
@@ -123,16 +119,19 @@ def _build_model(args, sample: np.ndarray, device, log):
 
 
 def _extract_split(model, images, labels, out_dir, split, batch_size, log,
-                   int8=False):
+                   int8=False, data_parallel=False):
     from ..data.feature_store import (save_feature_store, write_feature_csv,
                                       write_labels_csv)
     from ..extract import extract_features
+    from ._common import is_writer
 
     tic = time.perf_counter()
-    feats, labels, acc, preds = extract_features(model, images, labels,
-                                                 batch_size=batch_size,
-                                                 int8=int8)
+    feats, labels, acc, preds = extract_features(
+        model, images, labels, batch_size=batch_size, int8=int8,
+        data_parallel=data_parallel)
     seconds = time.perf_counter() - tic
+    if not is_writer():
+        return Extracted(feats, labels, acc, preds, seconds)
     fcsv = os.path.join(out_dir, f"feature_vector_{split}.csv")
     lcsv = os.path.join(out_dir, f"label_{split}.csv")
     for pth in (fcsv, lcsv):
@@ -150,24 +149,35 @@ def _extract_split(model, images, labels, out_dir, split, batch_size, log,
 def main(argv=None):
     """Extract every split; returns ``{split: Extracted}``."""
     args = build_parser().parse_args(argv)
-    _check_args(args)
-    from ..device import full_f32, resolve_device
+    if args.data_parallel:
+        from ..parallel import process_group, rank_device
+
+        with process_group(args.device):
+            return _main(args, rank_device(args.device))
+    from ..device import resolve_device
+
+    return _main(args, resolve_device(args.device))
+
+
+def _main(args, device):
+    from ..device import full_f32
     from ..utils import enable_compilation_cache
-    from ._common import log_config, setup_logging
+    from ._common import is_writer, log_config, setup_logging
 
     full_f32()
     enable_compilation_cache()   # a no-op: the kernels' build dir caches
-    device = resolve_device(args.device)
     log = setup_logging(os.path.join(args.out_dir, "log"), "extract")
     log_config(log, args)
-    os.makedirs(args.out_dir, exist_ok=True)
+    if is_writer():
+        os.makedirs(args.out_dir, exist_ok=True)
     splits = _load_splits(args)
     if not splits:
         raise SystemExit("provide --train-images/--valid-images or "
                          "--synthetic")
     model = _build_model(args, next(iter(splits.values()))[0], device, log)
     return {split: _extract_split(model, images, labels, args.out_dir, split,
-                                  args.batch_size, log, int8=args.int8)
+                                  args.batch_size, log, int8=args.int8,
+                                  data_parallel=args.data_parallel)
             for split, (images, labels) in splits.items()}
 
 

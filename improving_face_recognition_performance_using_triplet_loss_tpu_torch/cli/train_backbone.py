@@ -12,9 +12,22 @@ updates), and an export (``weights.npz`` + ``manifest.json``, with
 port's extractor and the JAX package load. ``--mining semi_hard_fused``
 mines with kernel B1 on the card, and every EFM3 runs kernel B2 forward
 and backward. Runs on ``cuda`` unless ``--device cpu`` is given.
-``--data-parallel`` and ``--class-parallel`` are not ported yet
-(ROADMAP.md A10). ``--model deepface`` trains the 3-channel DeepFace
-(``--synthetic`` faces at 72x72 at least, its 65-pixel floor).
+``--model deepface`` trains the 3-channel DeepFace (``--synthetic`` faces
+at 72x72 at least, its 65-pixel floor).
+
+``--data-parallel`` shards each batch over the ranks (a data mesh of
+every rank); ``--class-parallel M`` shards the ID softmax's ``fc2`` over M
+ranks of a 2-D ``(data, model)`` mesh, the batch over the other axis.
+The global batch is ``--batch-size`` either way: the ``.npz`` path draws
+the same global batch on every rank from the seed and each data rank
+takes its block (a world-1 run sees the same batches); an mmap store is
+read in one contiguous shard a data rank (``host_id`` / ``num_hosts``),
+``--batch-size / data ranks`` rows at a time, every rank stopping at the
+smallest shard's count. Run plainly these flags are one rank; under
+``python -m torch.distributed.run --nproc-per-node N`` they span N ranks
+(gloo where ranks share a card), and only rank 0 writes the logs, the
+CSV, checkpoints (``--class-parallel``: the whole ``fc2`` gathered) and
+the export (always the whole ``fc2``).
 
     python -m improving_face_recognition_performance_using_triplet_loss_tpu_torch.cli.train_backbone \\
         --images store/ --epochs 2 --mining semi_hard_fused --out-dir /tmp/bb
@@ -25,6 +38,7 @@ from __future__ import annotations
 import argparse
 import copy
 import importlib.util
+import itertools
 import os
 
 import numpy as np
@@ -33,8 +47,6 @@ import torch
 from ..models import MODEL_NAMES
 from ..train.optim import FAMILIES
 from ..train.steps import MINING_MODES
-
-_ROADMAP = "ROADMAP.md queue A"
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -88,9 +100,12 @@ def build_parser() -> argparse.ArgumentParser:
                         "for parity with the JAX CLI: the port runs the K "
                         "steps one by one, so it gains no speed")
     p.add_argument("--data-parallel", action="store_true",
-                   help="not ported yet (ROADMAP.md A10)")
+                   help="shard each batch over every rank (a plain run is "
+                        "one rank; launch with torch.distributed.run for "
+                        "more)")
     p.add_argument("--class-parallel", type=int, default=0, metavar="M",
-                   help="not ported yet (ROADMAP.md A10)")
+                   help="shard the ID-softmax head over M ranks (a 2-D "
+                        "data x model mesh)")
     p.add_argument("--resume", action="store_true")
     p.add_argument("--checkpoint-every", type=int, default=1)
     p.add_argument("--seed", type=int, default=0)
@@ -98,13 +113,6 @@ def build_parser() -> argparse.ArgumentParser:
                    help="torch device (default cuda; 'cpu' runs the plain "
                         "PyTorch path)")
     return p
-
-
-def _check_args(args) -> None:
-    if args.data_parallel or args.class_parallel:
-        flag = "--data-parallel" if args.data_parallel else "--class-parallel"
-        raise SystemExit(f"{flag} is not ported; data and class "
-                         f"parallelism are queued in {_ROADMAP}, item 10")
 
 
 def load_images(args):
@@ -138,6 +146,18 @@ def load_images(args):
     raise SystemExit("provide --images or --synthetic")
 
 
+class _Local:
+    """This rank's block of each batch of ``batches`` (an iterable)."""
+
+    def __init__(self, batches, mesh):
+        self.batches, self.mesh = batches, mesh
+
+    def __iter__(self):
+        from ._common import local_batches
+
+        return local_batches(self.batches, self.mesh)
+
+
 class MirrorBatches:
     """Host-side rand_mirror over a pair batcher (ImageRecordIter
     rand_mirror=True), a numpy copy of the JAX CLI's: each anchor and
@@ -160,26 +180,95 @@ class MirrorBatches:
             yield anc, pos, lab
 
 
+class TakeBatches:
+    """The first ``steps`` batches of ``batcher`` each pass."""
+
+    def __init__(self, batcher, steps: int):
+        self.batcher, self.steps = batcher, steps
+
+    def __iter__(self):
+        return itertools.islice(iter(self.batcher), self.steps)
+
+
+def make_batcher(images, labels, batch: int, args, is_mmap: bool,
+                 data_rank: int = 0, data_ranks: int = 1):
+    """The training batches a data rank iterates: from an mmap store, its
+    contiguous shard (``host_id=data_rank``, ``num_hosts=data_ranks``)
+    ``batch / data_ranks`` rows at a time, cut to the smallest shard's
+    batch count so every rank takes as many steps; from an ``.npz``
+    store, the global batches (the rank takes its block of each)."""
+    from ..data import PairBatcher, ShardedPairBatcher
+
+    if not is_mmap:
+        return PairBatcher(images, labels, batch, shuffle=True,
+                           seed=args.seed)
+    local = batch // data_ranks
+    # the streaming loader: windowed shuffle, uint8 batches normalized
+    # on the device in the step
+    batcher = ShardedPairBatcher(
+        (images, labels), local, host_id=data_rank, num_hosts=data_ranks,
+        shuffle=True, shuffle_window=args.shuffle_window, seed=args.seed)
+    if data_ranks == 1:
+        return batcher
+    return TakeBatches(batcher, (images.shape[0] // data_ranks) // local)
+
+
 def main(argv=None):
     """Train; returns ``(state, [EpochStats])``."""
     args = build_parser().parse_args(argv)
-    _check_args(args)
-    from ..data import PairBatcher, ShardedPairBatcher, load_image_store
+    if args.data_parallel or args.class_parallel:
+        from ..parallel import process_group, rank_device
+
+        with process_group(args.device):
+            return _main(args, rank_device(args.device))
+    from ..device import resolve_device
+
+    return _main(args, resolve_device(args.device))
+
+
+def _mesh(args, num_classes: int, batch: int):
+    """The run's mesh (None without a parallel flag) and its data axis's
+    ``(rank, size)``."""
+    from ..parallel import axis_index, axis_size, make_2d_mesh, make_mesh
+
+    if args.class_parallel:
+        if num_classes % args.class_parallel:
+            raise SystemExit(
+                f"--class-parallel {args.class_parallel} must divide the "
+                f"class count {num_classes}")
+        if args.center_loss_weight > 0:
+            raise SystemExit("--center-loss-weight is incompatible with "
+                             "--class-parallel")
+        mesh = make_2d_mesh(model_size=args.class_parallel)
+    elif args.data_parallel:
+        mesh = make_mesh()
+    else:
+        return None, 0, 1
+    rank, size = axis_index(mesh, "data"), axis_size(mesh, "data")
+    if batch % size:
+        raise SystemExit(f"--batch-size {batch} must divide over the "
+                         f"{size} data ranks")
+    return mesh, rank, size
+
+
+def _main(args, device):
+    from ..data import PairBatcher, load_image_store
     from ..data.prefetch import prefetch_to_device
-    from ..device import full_f32, resolve_device
-    from ..eval.cosine import CosineSimilaritySink
+    from ..device import full_f32
     from ..models import model_by_name
     from ..serve.convert import export_model
     from ..train import (
-        Checkpointer, PreemptionGuard, backbone_optimizer,
-        create_train_state, get_ema_params, make_backbone_eval_step,
+        BACKBONE_METRIC_KEYS, Checkpointer, ClassShards, PreemptionGuard,
+        backbone_optimizer, create_train_state, get_ema_params,
+        infer_class_parallel_specs, make_backbone_eval_step,
         make_backbone_train_step, make_scanned_step, resume_if_available,
-        train_loop, with_param_ema,
+        shard_map_scanned_step, shard_map_scanned_step_2d, shard_map_step,
+        shard_map_step_2d, train_loop, with_param_ema,
     )
-    from ._common import log_config, setup_logging
+    from ._common import (is_writer, local_batches, log_config,
+                          setup_logging, writer_sink)
 
     full_f32()
-    device = resolve_device(args.device)
     log = setup_logging(os.path.join(args.out_dir, "log"), "train_backbone")
     log_config(log, args)
 
@@ -198,10 +287,20 @@ def main(argv=None):
         # the net is sized by the cropped input it sees
         in_hw = (args.crop_size, args.crop_size)
 
+    mesh, data_rank, data_ranks = _mesh(args, num_classes, batch)
     model = model_by_name(args.model, num_classes, input_hw=in_hw,
                           in_channels=images.shape[3],
                           generator=torch.Generator().manual_seed(args.seed),
                           device=device)
+    shards = None
+    if args.class_parallel:
+        # every rank builds the whole model from the seed, then keeps its
+        # block of the fc2 classes
+        shards = ClassShards(infer_class_parallel_specs(
+            model, num_classes, "model"), mesh)
+        shards.shard_model_(model)
+        log.info("class-parallel softmax: %d-way head shard x %d-way data",
+                 args.class_parallel, data_ranks)
     tx = backbone_optimizer(
         args.optimizer, base_lr=args.lr,
         decay_every_steps=steps_per_epoch * args.lr_decay_epochs,
@@ -213,44 +312,55 @@ def main(argv=None):
     state = create_train_state(model, tx, args.seed, aux=aux)
 
     compute_dtype = torch.bfloat16 if args.bf16 else None
+    data_axis = "data" if mesh is not None else None
+    class_axis = "model" if args.class_parallel else None
     train_step = make_backbone_train_step(
         margin=args.margin, alpha=args.alpha, mining_mode=args.mining,
+        axis_name=data_axis, class_axis_name=class_axis,
         center_weight=args.center_loss_weight,
         mirror_augment=args.device_augment and not args.no_mirror,
         crop_size=args.crop_size, compute_dtype=compute_dtype)
     eval_step = make_backbone_eval_step(
         margin=args.margin, alpha=args.alpha, mining_mode=args.mining,
+        axis_name=data_axis, class_axis_name=class_axis,
         crop_size=args.crop_size, compute_dtype=compute_dtype)
-    if args.scan_chunk > 1:
+    if shards is not None:
+        train_step = (
+            shard_map_scanned_step_2d(train_step, mesh, shards.specs)
+            if args.scan_chunk > 1 else shard_map_step_2d(
+                train_step, mesh, shards.specs, has_state_out=True))
+        eval_step = shard_map_step_2d(eval_step, mesh, shards.specs,
+                                      has_state_out=False)
+    elif mesh is not None:
+        train_step = (shard_map_scanned_step(train_step, mesh)
+                      if args.scan_chunk > 1 else shard_map_step(
+                          train_step, mesh, has_state_out=True))
+        eval_step = shard_map_step(eval_step, mesh, has_state_out=False,
+                                   metric_keys=BACKBONE_METRIC_KEYS)
+    elif args.scan_chunk > 1:
         train_step = make_scanned_step(train_step)
 
-    ckpt = Checkpointer(os.path.join(args.out_dir, "ckpt"))
+    ckpt = Checkpointer(os.path.join(args.out_dir, "ckpt"), shards=shards)
     start_epoch = 0
     if args.resume:
         state, start_epoch = resume_if_available(ckpt, state)
         log.info("resumed at epoch %d", start_epoch)
 
-    if is_mmap:
-        # the streaming loader: windowed shuffle, uint8 batches normalized
-        # on the device in the step
-        batcher = ShardedPairBatcher(
-            (images, labels), batch, shuffle=True,
-            shuffle_window=args.shuffle_window, seed=args.seed)
-    else:
-        batcher = PairBatcher(images, labels, batch, shuffle=True,
-                              seed=args.seed)
+    batcher = make_batcher(images, labels, batch, args, is_mmap, data_rank,
+                           data_ranks)
     host_mirror = not args.no_mirror and not args.device_augment
     train_batches = MirrorBatches(batcher, host_mirror, args.seed)
+    if not is_mmap:
+        train_batches = _Local(train_batches, mesh)
     eval_batches = None
     if args.eval_images:
         ei, el = load_image_store(args.eval_images)
         if ei.dtype == np.uint8:
             ei = ei.astype(np.float32) / 255.0
         eb = PairBatcher(ei, el, min(batch, ei.shape[0]), shuffle=False)
-        eval_batches = lambda: iter(eb)  # noqa: E731
+        eval_batches = lambda: local_batches(eb, mesh)  # noqa: E731
 
-    sink = CosineSimilaritySink(
-        os.path.join(args.out_dir, "cosine_similarity.csv"))
+    sink = writer_sink(args.out_dir)
     batch_source = lambda: iter(train_batches)  # noqa: E731
     if args.prefetch > 0:
         batch_source = lambda: prefetch_to_device(  # noqa: E731
@@ -263,13 +373,18 @@ def main(argv=None):
             checkpoint_every_epochs=args.checkpoint_every,
             start_epoch=start_epoch, preemption_guard=guard,
             scan_chunk=args.scan_chunk)
-    sink.flush()
+    if sink is not None:
+        sink.flush()
 
     net = state.model
     if args.ema_decay > 0:
         net = copy.deepcopy(net)
         net.load_state_dict(get_ema_params(state), strict=False)
         log.info("export uses EMA weights (decay %.4f)", args.ema_decay)
+    if shards is not None:
+        net = shards.full_model(net)   # every rank takes part
+    if not is_writer():
+        return state, history
     export_model(os.path.join(args.out_dir, "export"), net,
                  extra={"precision": "bf16" if args.bf16 else "f32"})
 

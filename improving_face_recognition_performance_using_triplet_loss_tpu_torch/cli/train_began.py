@@ -8,8 +8,11 @@ space (``--mining semi_hard_fused`` mines with kernel B1 on the card).
 Saves a sample grid every ``--sample-every`` epochs and at the end
 (``samples_<epoch>.jpg``, cv2), the convergence-measure curve where
 matplotlib is installed, and both players as exports (``export_gen``,
-``export_disc``). Runs on ``cuda`` unless ``--device cpu`` is given;
-``--data-parallel`` is not ported yet (ROADMAP.md A10).
+``export_disc``). Runs on ``cuda`` unless ``--device cpu`` is given.
+``--data-parallel`` shards each batch over the ranks (each draws the
+global batch from the seed and steps on its block; both players'
+gradients are averaged over the ranks); only rank 0 writes samples, the
+curve, the log and the exports.
 
     python -m improving_face_recognition_performance_using_triplet_loss_tpu_torch.cli.train_began \\
         --synthetic --epochs 2 --out-dir /tmp/began
@@ -71,23 +74,32 @@ def save_sample_grid(images: np.ndarray, path: str, cols: int = 8) -> str:
 
 
 def main(argv=None):
+    """Train; returns ``(state, [convergence a epoch])``."""
     args = build_parser().parse_args(argv)
     if args.data_parallel:
-        raise SystemExit("--data-parallel is not ported; data parallelism "
-                         "is queued in ROADMAP.md queue A, item 10")
+        from ..parallel import process_group, rank_device
+
+        with process_group(args.device):
+            return _main(args, rank_device(args.device))
+    from ..device import resolve_device
+
+    return _main(args, resolve_device(args.device))
+
+
+def _main(args, device):
     import torch
 
     from ..data import PairBatcher
-    from ..device import full_f32, resolve_device
+    from ..device import full_f32
     from ..models.began_cs import AutoencoderDiscriminator, Generator
     from ..serve.export import export_params
-    from ..train.gan import create_gan_state, make_began_cs_train_step
+    from ..train.gan import (create_gan_state, make_began_cs_train_step,
+                             shard_map_gan_step)
     from ..train.optim import adam
-    from ._common import log_config, setup_logging
+    from ._common import is_writer, local_batches, log_config, setup_logging
     from .train_backbone import load_images
 
     full_f32()
-    device = resolve_device(args.device)
     log = setup_logging(os.path.join(args.out_dir, "log"), "train_began")
     log_config(log, args)
 
@@ -113,16 +125,25 @@ def main(argv=None):
     step = make_began_cs_train_step(
         h_dim=args.h_dim, gamma=args.gamma, lambda_k=args.lambda_k,
         lambda_cs=args.lambda_cs, triplet_weight=args.triplet_weight,
-        triplet_margin=args.triplet_margin, mining_mode=args.mining)
+        triplet_margin=args.triplet_margin, mining_mode=args.mining,
+        axis_name="data" if args.data_parallel else None)
+    mesh = None
+    if args.data_parallel:
+        from ..parallel import make_mesh
+
+        mesh = make_mesh()
+        step = shard_map_gan_step(step, mesh)
 
     sample_z = (torch.rand((16, args.h_dim), generator=torch.Generator()
                            .manual_seed(args.seed + 1)) * 2.0 - 1.0).to(device)
     batcher = PairBatcher(images, labels, batch, shuffle=True, seed=args.seed)
-    os.makedirs(args.out_dir, exist_ok=True)
+    writer = is_writer()
+    if writer:
+        os.makedirs(args.out_dir, exist_ok=True)
     convergence = []
     for epoch in range(args.epochs):
         last = None
-        for anc, pos, lab in batcher:
+        for anc, pos, lab in local_batches(batcher, mesh):
             state, last = step(state, anc, pos, lab)
         if last is not None:
             convergence.append(float(last["convergence"]))
@@ -131,13 +152,16 @@ def main(argv=None):
                 epoch, float(last["convergence"]), float(last["loss_d"]),
                 float(last["loss_g"]), float(last["loss_cs"]),
                 float(last["loss_triplet"]), float(last["k_t"]))
-        if (epoch + 1) % args.sample_every == 0 or epoch == args.epochs - 1:
+        if writer and ((epoch + 1) % args.sample_every == 0
+                       or epoch == args.epochs - 1):
             with torch.no_grad():
                 fake = state.generator(sample_z)
             save_sample_grid(fake.cpu().numpy(),
                              os.path.join(args.out_dir,
                                           f"samples_{epoch:04d}.jpg"))
 
+    if not writer:
+        return state, convergence
     if convergence and importlib.util.find_spec("matplotlib") is not None:
         from ..eval.plots import draw_curve
 

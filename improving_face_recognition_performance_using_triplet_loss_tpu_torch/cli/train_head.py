@@ -9,8 +9,13 @@ batch, a checkpoint per epoch (``--resume`` continues), and an export
 ``--mining semi_hard_fused`` mines with kernel B1 on the card. Runs on
 ``cuda`` unless ``--device cpu`` is given. ``--export-projector`` writes
 the projector TSVs of the features before and after the head
-(``eval/projector.py``). ``--data-parallel`` is not ported yet (ROADMAP.md
-A10).
+(``eval/projector.py``). ``--data-parallel`` runs the step over a data
+mesh of every rank: each rank draws the same global batch from the seed
+and steps on its block, mining from the gathered pool (kernel B1 over
+``local B x world * 2B``); run plainly it is a group of one, under
+``python -m torch.distributed.run --nproc-per-node N`` it spans N ranks
+(ranks that share a card talk over gloo), and only rank 0 writes logs,
+the CSV, checkpoints and the export.
 
     python -m improving_face_recognition_performance_using_triplet_loss_tpu_torch.cli.train_head \\
         --synthetic --epochs 3 --batch-size 256 --out-dir /tmp/head
@@ -26,8 +31,6 @@ import numpy as np
 import torch
 
 from ..train.steps import MINING_MODES
-
-_ROADMAP = "ROADMAP.md queue A"
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -53,7 +56,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="write the embedding-projector TSVs of the "
                         "features before and after the trained head")
     p.add_argument("--data-parallel", action="store_true",
-                   help="not ported yet (ROADMAP.md A10)")
+                   help="shard each batch over every rank (a plain run is "
+                        "one rank; launch with torch.distributed.run for "
+                        "more)")
     p.add_argument("--ema-decay", type=float, default=0.0,
                    help="parameter EMA; the export uses the averaged "
                         "weights")
@@ -81,30 +86,34 @@ def load_features(args):
                      "or --synthetic")
 
 
-def _check_args(args) -> None:
-    if args.data_parallel:
-        raise SystemExit("--data-parallel is not ported; data parallelism "
-                         f"is queued in {_ROADMAP}, item 10")
-
-
 def main(argv=None):
     """Train; returns ``(state, [EpochStats])``."""
     args = build_parser().parse_args(argv)
-    _check_args(args)
+    if args.data_parallel:
+        from ..parallel import process_group, rank_device
+
+        with process_group(args.device):
+            return _main(args, rank_device(args.device))
+    from ..device import resolve_device
+
+    return _main(args, resolve_device(args.device))
+
+
+def _main(args, device):
     from ..data import PairBatcher, load_feature_store
-    from ..device import full_f32, resolve_device
-    from ..eval.cosine import CosineSimilaritySink
+    from ..device import full_f32
     from ..models.heads import LinearHead
     from ..serve.export import export_params
     from ..train import (
-        Checkpointer, PreemptionGuard, create_train_state, get_ema_params,
-        make_head_eval_step, make_head_train_step, resume_if_available,
-        sgd_wd, train_loop, with_param_ema,
+        HEAD_METRIC_KEYS, Checkpointer, PreemptionGuard, create_train_state,
+        get_ema_params, make_head_eval_step, make_head_train_step,
+        resume_if_available, sgd_wd, shard_map_step, train_loop,
+        with_param_ema,
     )
-    from ._common import log_config, setup_logging
+    from ._common import (is_writer, local_batches, log_config,
+                          setup_logging, writer_sink)
 
     full_f32()
-    device = resolve_device(args.device)
     log = setup_logging(os.path.join(args.out_dir, "log"), "train_head")
     log_config(log, args)
 
@@ -120,11 +129,21 @@ def main(argv=None):
         tx = with_param_ema(tx, decay=args.ema_decay)
     state = create_train_state(model, tx, args.seed)
 
+    axis = "data" if args.data_parallel else None
     train_step = make_head_train_step(
-        margin=args.margin, mining_mode=args.mining,
+        margin=args.margin, mining_mode=args.mining, axis_name=axis,
         normalize_embeddings=args.normalize_embeddings)
     eval_step = make_head_eval_step(margin=args.margin,
-                                    mining_mode=args.mining)
+                                    mining_mode=args.mining, axis_name=axis)
+    mesh = None
+    if args.data_parallel:
+        from ..parallel import make_mesh
+
+        mesh = make_mesh()
+        train_step = shard_map_step(train_step, mesh, has_state_out=True,
+                                    metric_keys=HEAD_METRIC_KEYS)
+        eval_step = shard_map_step(eval_step, mesh, has_state_out=False,
+                                   metric_keys=HEAD_METRIC_KEYS)
 
     ckpt = Checkpointer(os.path.join(args.out_dir, "ckpt"))
     start_epoch = 0
@@ -137,18 +156,20 @@ def main(argv=None):
     if args.test_features:
         ef, el = load_feature_store(args.test_features)
         eb = PairBatcher(ef, el, min(batch, ef.shape[0]), shuffle=False)
-        eval_batches = lambda: iter(eb)  # noqa: E731
+        eval_batches = lambda: local_batches(eb, mesh)  # noqa: E731
 
-    sink = CosineSimilaritySink(
-        os.path.join(args.out_dir, "cosine_similarity.csv"))
+    sink = writer_sink(args.out_dir)
     with PreemptionGuard() as guard:
         state, history = train_loop(
-            state, train_step, lambda: iter(batcher),
+            state, train_step, lambda: local_batches(batcher, mesh),
             epochs=args.epochs, eval_step=eval_step if eval_batches else None,
             eval_batches=eval_batches, sink=sink, checkpointer=ckpt,
             start_epoch=start_epoch, preemption_guard=guard)
-    sink.flush()
+    if sink is not None:
+        sink.flush()
 
+    if not is_writer():
+        return state, history
     if args.export_projector:
         from ..eval.projector import export_projector
 

@@ -37,6 +37,7 @@ import torch.nn.functional as F
 
 from ..device import resolve_device
 from ..models.mtcnn import conv_route, plain_conv_nhwc
+from ..parallel.collectives import all_reduce
 from .cuda.stem import stem_conv_maxout_pool
 from .distances import int8_product, l2_normalize
 from .mfm import mfm2
@@ -77,12 +78,18 @@ def quantize_lightcnn9_params(params, device=None) -> dict:
     return q
 
 
-def quantize_activations(x: torch.Tensor, groups: int = 1):
+def quantize_activations(x: torch.Tensor, groups: int = 1,
+                         process_group=None):
     """Dynamic symmetric int8 of ``x`` with one scale for each of
     ``groups`` equal slices of its leading axis (1: the whole tensor);
-    scale math in float32. Returns ``(int8 x, scales [groups])``."""
+    scale math in float32. With ``process_group`` the magnitudes are the
+    maxima over its ranks (each holding its block of one batch), so the
+    scale is the whole batch's. Returns ``(int8 x, scales [groups])``."""
     xf = x.float()
-    s = xf.abs().reshape(groups, -1).amax(dim=1) * _INV_127
+    amax = xf.abs().reshape(groups, -1).amax(dim=1)
+    if process_group is not None:
+        amax = all_reduce(amax, "max", process_group)
+    s = amax * _INV_127
     s = torch.where(s > 0.0, s, 1.0)
     rows = s.repeat_interleave(x.shape[0] // groups)
     xq = torch.clamp(torch.round(xf / rows.reshape(-1, *[1] * (x.dim() - 1))),
@@ -185,12 +192,16 @@ class Int8ConvRoute:
     input cast to it as a flax layer casts. ``rerouted`` / ``passed`` hold
     the convs seen each way. Weights are quantized once per weight version
     and kept, so a caller that runs many batches keeps one route and
-    enters it with ``models.mtcnn.conv_route`` for each."""
+    enters it with ``models.mtcnn.conv_route`` for each. With
+    ``process_group`` the activation scales are over every rank's block of
+    the batch (sharded extraction)."""
 
-    def __init__(self, min_k: int = 64, compute_dtype=None, groups: int = 1):
+    def __init__(self, min_k: int = 64, compute_dtype=None, groups: int = 1,
+                 process_group=None):
         self.min_k = min_k
         self.compute_dtype = compute_dtype
         self.groups = groups
+        self.process_group = process_group
         self.rerouted: set[nn.Conv2d] = set()
         self.passed: set[nn.Conv2d] = set()
         self._weights: dict = {}
@@ -222,7 +233,7 @@ class Int8ConvRoute:
             return plain_conv_nhwc(x.to(conv.weight.dtype), conv)
         self.rerouted.add(conv)
         w8, s_w = self._quantized_weight(conv)
-        xq, s_a = quantize_activations(x, self.groups)
+        xq, s_a = quantize_activations(x, self.groups, self.process_group)
         acc = int8_conv_nhwc(xq, w8, tuple(conv.stride), tuple(conv.padding))
         y = _dequantize(acc, s_a, s_w, conv.bias, self.groups)
         return y.to(self.compute_dtype or conv.weight.dtype)

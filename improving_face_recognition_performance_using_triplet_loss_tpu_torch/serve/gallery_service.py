@@ -17,8 +17,14 @@ and this module keeps them consistent:
 
 Match semantics stay exactly :meth:`PersonStore.match`'s cosine over valid
 faces; the pipelines run it on the device against
-``(service.gallery_n, service.rows_arg)``. The mesh-sharded gallery is not
-ported (ROADMAP.md queue A, item 10).
+``(service.gallery_n, service.rows_arg)``.
+
+With ``mesh=`` the device rows are sharded over ``gallery_axis``
+(``DeviceGallery(mesh=...)``, the gallery-sharded pipeline's layout) and
+every rank runs the service with the same calls, as the JAX package's one
+controller does: rank 0 writes the store and broadcasts the ids it got,
+the other ranks read it; ``match_batch`` reduces each rank's block
+winners over the gallery axis.
 """
 
 from __future__ import annotations
@@ -26,6 +32,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..parallel.collectives import broadcast_object, global_argmax
+from ..parallel.distributed import process_info
+from ..parallel.mesh import axis_group, axis_index
 from .device_gallery import DeviceGallery
 from .person_store import MatchResult, Person, PersonStore
 
@@ -40,7 +49,7 @@ class PersonGalleryService:
         if res.person: print(res.person.name)
 
     The device rows live on ``device`` (``cuda`` unless given); ``mesh=``
-    raises (ROADMAP.md queue A, item 10).
+    shards them over ``gallery_axis`` (module docstring).
 
     Consistency contract: mutations made THROUGH the service (``enroll``,
     ``add_face``, ``retire_person``) keep DB and device rows in sync; direct
@@ -60,6 +69,18 @@ class PersonGalleryService:
         self._stale = False  # set when a failed row write couldn't be
         #                      repaired in place; cleared by _ensure_fresh
         self._load()
+
+    def _write(self, fn):
+        """``fn()`` on rank 0 (the store's one writer), its result on every
+        rank; the other ranks drop what their store cached, which that
+        write made stale."""
+        if self._mesh is None:
+            return fn()
+        writer = process_info()[0] == 0
+        out = broadcast_object(fn() if writer else None)
+        if not writer:
+            self.store._invalidate()
+        return out
 
     def _ensure_fresh(self) -> None:
         if self._stale:
@@ -102,7 +123,7 @@ class PersonGalleryService:
         ``register_person`` + one O(row) device row write per feature.
         Returns the pid."""
         feats = [np.asarray(f, np.float32) for f in features]
-        pid = self.store.register_person(person)
+        pid = self._write(lambda: self.store.register_person(person))
         for fv in feats:
             self.add_face(pid, fv)
         return pid
@@ -114,7 +135,7 @@ class PersonGalleryService:
             raise KeyError(f"no person pid={pid}")
         self._ensure_fresh()
         feature = np.asarray(feature, np.float32)
-        fid = self.store.insert_face(pid, feature)
+        fid = self._write(lambda: self.store.insert_face(pid, feature))
         try:
             self._dg.add(feature)
         except Exception:
@@ -141,7 +162,7 @@ class PersonGalleryService:
         device rows (zero rows lose every thresholded match). Returns the
         number of rows tombstoned; :meth:`refresh` compacts them."""
         self._ensure_fresh()
-        self.store.set_person_flag(pid, 0)
+        self._write(lambda: self.store.set_person_flag(pid, 0))
         n = 0
         for row, row_pid in enumerate(self._pids):
             if row_pid == pid:
@@ -194,9 +215,23 @@ class PersonGalleryService:
         with torch.inference_mode():
             probes_n = torch.from_numpy(l2_normalize_np(probes)).to(
                 gal.device)
-            idx, sim, real = _match_gallery(gallery_sims(probes_n, gal),
-                                            self.rows_arg)
+            sims = gallery_sims(probes_n, gal)
+            if self._mesh is None:
+                idx, sim, real = _match_gallery(sims, self.rows_arg)
+            else:
+                idx, sim, real = self._match_sharded(sims)
             idx, sim, real = (t.cpu().numpy() for t in (idx, sim, real))
         return [self.resolve(int(i), float(s), sim_th) if bool(r)
                 else MatchResult(None, 0.0)  # empty gallery: host parity
                 for i, s, r in zip(idx, sim, real)]
+
+    def _match_sharded(self, sims: torch.Tensor):
+        """``_match_gallery`` over this rank's block ``[N, block]`` of the
+        sharded gallery, reduced over the gallery axis."""
+        from .pipeline import _match_gallery
+
+        row0 = axis_index(self._mesh, self._gallery_axis) * sims.shape[-1]
+        idx, sim, _ = _match_gallery(sims, self.rows - row0)
+        idx, sim = global_argmax(
+            idx, sim, row0, axis_group(self._mesh, self._gallery_axis))
+        return idx, sim, sim > float("-inf")

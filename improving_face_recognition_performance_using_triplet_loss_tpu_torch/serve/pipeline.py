@@ -26,9 +26,8 @@ from ..ops.boxes import stable_topk
 from ..ops.distances import (gallery_sims, l2_normalize, l2_normalize_np,
                              narrow_gallery_np)
 from ..ops.quantized import Int8ConvRoute
-
-_SHARDED = ("the mesh-sharded pipelines are not ported; queued in "
-            "ROADMAP.md queue A, item 10")
+from ..parallel.collectives import gather_rows, global_argmax
+from ..parallel.mesh import axis_group, axis_index, axis_size, local_block
 # the device cascade's output capacity: the most faces a frame can yield
 MAX_FACES = 64
 
@@ -268,16 +267,102 @@ def _make_multiface_batched(detector, embed_model, gallery=None, *,
     return pipeline
 
 
-def make_sharded_multistream_pipeline(*args, **kwargs):
-    raise NotImplementedError(_SHARDED)
+def make_sharded_multistream_pipeline(detector, embed_model, gallery, mesh,
+                                      *, axis: str = "data", **kwargs):
+    """Multi-stream serving over the ranks of ``mesh``'s ``axis``: frames
+    ``[N, H, W, 3]`` split along the stream axis in rank order, the nets
+    and the gallery on every rank. Takes
+    :func:`make_multistream_pipeline`'s keywords; returns fn(frames) ->
+    its dict, whole on every rank. N must be a multiple of the axis
+    size."""
+    multi = make_multistream_pipeline(detector, embed_model, gallery,
+                                      **kwargs)
+    group, d = axis_group(mesh, axis), axis_size(mesh, axis)
+
+    def run(frames):
+        n = frames.shape[0]
+        if n % d != 0:
+            raise ValueError(
+                f"stream count ({n}) must be a multiple of the mesh "
+                f"'{axis}' axis size ({d})")
+        out = multi(local_block(frames, mesh, axis))
+        return {k: gather_rows(v, group) for k, v in out.items()}
+
+    return run
 
 
-def make_gallery_sharded_multistream_pipeline(*args, **kwargs):
-    raise NotImplementedError(_SHARDED)
+def shard_gallery(gallery: np.ndarray, mesh, *, gallery_axis: str = "model",
+                  dtype=torch.float32, device=None):
+    """L2-normalize the gallery on the host, zero-pad its rows to a
+    ``gallery_axis`` multiple, narrow it to ``dtype`` and keep this
+    rank's block on the device. Returns ``(gal_n, rows)`` for
+    :func:`make_gallery_sharded_multistream_pipeline`, whose ``rows``
+    masks the padding out of every match."""
+    k, i = axis_size(mesh, gallery_axis), axis_index(mesh, gallery_axis)
+    g, d = gallery.shape
+    gal = l2_normalize_np(np.asarray(gallery, np.float32))
+    pad = (-g) % k
+    if pad:
+        gal = np.concatenate([gal, np.zeros((pad, d), np.float32)])
+    block = (g + pad) // k
+    rows = narrow_gallery_np(gal[i * block:(i + 1) * block], dtype)
+    return rows.to(resolve_device(device)), g
 
 
-def shard_gallery(*args, **kwargs):
-    raise NotImplementedError(_SHARDED)
+def make_gallery_sharded_multistream_pipeline(
+        detector, embed_model, mesh, *, stream_axis: str = "data",
+        gallery_axis: str = "model", frame_h: int, frame_w: int,
+        embed_size: int = 128, margin: int = 16, minsize: int = 20,
+        thresholds=(0.6, 0.7, 0.7), sim_threshold: float = 0.5,
+        int8_embed: bool = False, device=None):
+    """Serve a gallery sharded by rows over ``gallery_axis``: the frames
+    ``[N, H, W, 3]`` split over the flattened mesh for detection and
+    embedding, the ``[N, D]`` embeddings gathered on every rank, each
+    rank's gallery block scanned and the winners reduced over the gallery
+    axis. Call as ``fn(frames, gal_n, rows)`` with this rank's block
+    (:func:`shard_gallery` or ``DeviceGallery(mesh=...)``); the dict of
+    :func:`make_multistream_pipeline`, whole on every rank. N must be a
+    multiple of the mesh size. ``stream_axis`` names the mesh's other
+    axis (the frames span both)."""
+    del stream_axis
+    dev = resolve_device(device)
+    detect_embed = _make_detect_embed(
+        detector, embed_model, frame_h=frame_h, frame_w=frame_w,
+        embed_size=embed_size, margin=margin, minsize=minsize,
+        thresholds=thresholds, device=dev, int8_embed=int8_embed)
+    world, ndev = axis_group(mesh, None), axis_size(mesh, None)
+    ggroup = axis_group(mesh, gallery_axis)
+    gindex = axis_index(mesh, gallery_axis)
+
+    @torch.inference_mode()
+    def run(frames, gal_n, rows):
+        n = frames.shape[0]
+        if n % ndev != 0:
+            raise ValueError(
+                f"stream count ({n}) must be a multiple of the mesh size "
+                f"({ndev}) — frames shard over the whole mesh")
+        frames = torch.as_tensor(local_block(frames, mesh, None),
+                                 dtype=torch.float32, device=dev)
+        found, box, score, emb, cap_dropped = (
+            gather_rows(t, world) for t in detect_embed(frames))
+        row0 = gindex * gal_n.shape[0]
+        sims = gallery_sims(emb, gal_n)                   # [N, block]
+        idx, sim, _ = _match_gallery(
+            sims, torch.as_tensor(rows, device=sims.device) - row0)
+        idx, sim = global_argmax(idx, sim, row0, ggroup)
+        real = sim > float("-inf")
+        matched = found & real & (sim >= sim_threshold)
+        return {
+            "found": found,
+            "box": box,
+            "score": score,
+            "index": torch.where(matched, idx, -1).to(torch.int32),
+            "similarity": torch.where(found & real, sim, -2.0),
+            "embedding": emb,
+            "cap_dropped": cap_dropped,
+        }
+
+    return run
 
 
 def normalize_gallery(gallery, dtype=torch.float32, device=None) -> torch.Tensor:

@@ -9,6 +9,12 @@ optimizer's (every family's moments and counts), the EMA, ``aux`` (the
 center-loss table), the step and the seed, so a restored state continues
 the same sequence of updates. The two packages' checkpoints are not interchangeable; their exports
 (``serve/export.py``) are.
+
+Under a process group only rank 0 writes. With ``shards`` (a
+``train.sharding.ClassShards``: class parallelism) every rank calls
+``save``, which gathers the whole ``fc2``, its moments and its EMA over
+the model group into rank 0's one file, and ``restore`` slices each
+rank's blocks out of it again.
 """
 
 from __future__ import annotations
@@ -18,18 +24,26 @@ import shutil
 
 import torch
 
+from ..parallel.distributed import process_info
+
 _FILE = "state.pt"
 
 
 class Checkpointer:
     """Keeps the newest ``max_to_keep`` checkpoints under ``directory``."""
 
-    def __init__(self, directory: str, max_to_keep: int = 3):
+    def __init__(self, directory: str, max_to_keep: int = 3, *,
+                 shards=None):
         self.directory = os.path.abspath(directory)
         self.max_to_keep = max_to_keep
-        os.makedirs(self.directory, exist_ok=True)
+        self.shards = shards
+        self.writer = process_info()[0] == 0
+        if self.writer:
+            os.makedirs(self.directory, exist_ok=True)
 
     def _steps(self) -> list[int]:
+        if not os.path.isdir(self.directory):
+            return []
         return sorted(int(d) for d in os.listdir(self.directory)
                       if d.isdigit() and os.path.exists(
                           os.path.join(self.directory, d, _FILE)))
@@ -38,13 +52,17 @@ class Checkpointer:
         """Write ``state`` as checkpoint ``step`` (synchronously, so
         ``wait`` has nothing to wait for), then drop the oldest beyond
         ``max_to_keep``."""
-        path = os.path.join(self.directory, str(int(step)))
-        os.makedirs(path, exist_ok=True)
         blob = {"model": state.model.state_dict(),
                 "optimizer": state.optimizer.state_dict(),
                 "ema": state.ema, "ema_decay": state.ema_decay,
                 "aux": state.aux,
                 "step": state.step, "seed": state.seed}
+        if self.shards is not None:
+            blob = self.shards.gather_blob(blob, state.model)
+        if not self.writer:
+            return
+        path = os.path.join(self.directory, str(int(step)))
+        os.makedirs(path, exist_ok=True)
         tmp = os.path.join(path, _FILE + ".tmp")
         torch.save(blob, tmp)
         os.replace(tmp, os.path.join(path, _FILE))
@@ -64,6 +82,8 @@ class Checkpointer:
             raise FileNotFoundError(f"no checkpoints under {self.directory}")
         blob = torch.load(os.path.join(self.directory, str(int(step)), _FILE),
                           map_location=state.device, weights_only=True)
+        if self.shards is not None:
+            blob = self.shards.local_blob(blob, state.model)
         state.model.load_state_dict(blob["model"])
         state.optimizer.load_state_dict(blob["optimizer"])
         state.ema = blob["ema"]

@@ -13,8 +13,12 @@ shapes its latent space by identity. Both gradients are taken at the
 step's starting weights, as the JAX step takes them, and each player's
 optimizer steps on its own. ``z`` and ``random`` negatives are drawn from
 the generator of ``(seed, step)`` (``train.state.step_generator``), not
-JAX's keys. Data parallelism (``shard_map_gan_step``) is ROADMAP.md
-queue A, item 10.
+JAX's keys. With ``axis_name`` (run through :func:`shard_map_gan_step`,
+each rank calling it with its own rows) the step folds its data rank into
+the generator, mines from the pool gathered over the axis, and averages
+both players' gradients, the losses and the scalar metrics over it
+before either optimizer steps; per-row cosines come back gathered in rank
+order.
 """
 
 from __future__ import annotations
@@ -27,9 +31,11 @@ from ..losses.began import (convergence_measure, cs_constraint, k_update,
                             recon_l1)
 from ..losses.triplet import triplet_loss
 from ..ops.distances import rowwise_cosine
+from ..parallel.collectives import pmean, reduce_tensors_
+from ..parallel.mesh import DATA_AXIS, bound_axis
 from .optim import OptimizerSpec
 from .state import step_generator
-from .steps import _mine, _pool
+from .steps import _fold, _mine, _pmean_metrics, _pool, shard_map_step
 
 GAN_METRIC_KEYS = ("loss_d", "loss_g", "loss_real", "loss_fake", "loss_cs",
                    "loss_triplet", "k_t", "convergence", "pos_cos", "neg_cos")
@@ -66,10 +72,11 @@ def create_gan_state(generator, discriminator, gen_tx: OptimizerSpec,
 def disc_loss(generator, discriminator, real, z, labels, k_t, *,
               lambda_cs: float = 0.1, triplet_weight: float = 0.1,
               triplet_margin: float = 0.2, mining_mode: str = "random",
-              generator_rng: torch.Generator | None = None):
+              generator_rng: torch.Generator | None = None, data=None):
     """L_D at the players' current weights; returns ``(loss_d, aux)``
     (the loss pieces and the per-row cosines). The fake images carry no
-    gradient into the generator."""
+    gradient into the generator. ``data``: the mining pool is gathered
+    over that axis."""
     b = labels.shape[0]
     with torch.no_grad():
         fake = generator(z)
@@ -79,7 +86,7 @@ def disc_loss(generator, discriminator, real, z, labels, k_t, *,
     l_fake = recon_l1(fake, recon_fake)
     l_cs = cs_constraint(z, z_fake)
     anc_e, pos_e = z_real[:b], z_real[b:]
-    pool_feat, pool_labels = _pool(anc_e, pos_e, labels)
+    pool_feat, pool_labels = _pool(anc_e, pos_e, labels, data)
     neg_e = _mine(mining_mode, generator_rng, anc_e, pos_e, pool_feat,
                   labels, pool_labels)
     tl = triplet_loss(anc_e, pos_e, neg_e, margin=triplet_margin,
@@ -119,15 +126,13 @@ def make_began_cs_train_step(
     """``step(state, anchor, positive, labels, z=None) -> (state,
     metrics)``; ``z`` [2B, h_dim] replaces the step's draw (the parity
     tests feed JAX's). After the step each parameter's ``.grad`` holds the
-    gradient it was updated with."""
-    if axis_name is not None:
-        raise NotImplementedError(
-            "data-parallel BEGAN-CS training is not ported; queued in "
-            "ROADMAP.md queue A, item 10")
+    gradient it was updated with. ``axis_name``: data parallelism (module
+    docstring)."""
 
     def step(state: GANState, anchor, positive, labels, z=None):
         dev = state.device
-        gen = step_generator(state)
+        data = bound_axis(axis_name)
+        gen = step_generator(state, _fold(data))
         real = torch.cat([torch.as_tensor(anchor, device=dev),
                           torch.as_tensor(positive, device=dev)]).float()
         labels = torch.as_tensor(labels, device=dev).to(torch.int32)
@@ -143,10 +148,16 @@ def make_began_cs_train_step(
             g_model, d_model, real, z, labels, state.k_t,
             lambda_cs=lambda_cs, triplet_weight=triplet_weight,
             triplet_margin=triplet_margin, mining_mode=mining_mode,
-            generator_rng=gen)
+            generator_rng=gen, data=data)
         d_grads = torch.autograd.grad(loss_d, d_params)
         loss_g = gen_loss(g_model, d_model, z)
         g_grads = torch.autograd.grad(loss_g, g_params)
+        if data is not None:
+            reduce_tensors_(list(d_grads) + list(g_grads), data.group,
+                            divide=data.size)
+            loss_d, loss_g = pmean(loss_d, data.group), pmean(loss_g,
+                                                              data.group)
+            aux = _pmean_metrics(aux, data)
         _set_grads(d_params, d_grads)
         _set_grads(g_params, g_grads)
         state.disc_opt.step()
@@ -166,6 +177,10 @@ def make_began_cs_train_step(
     return step
 
 
-def shard_map_gan_step(*args, **kwargs):
-    raise NotImplementedError("data-parallel BEGAN-CS training is not "
-                              "ported; queued in ROADMAP.md queue A, item 10")
+def shard_map_gan_step(step_fn, mesh, axis_name: str = DATA_AXIS):
+    """Run a GAN step built with ``axis_name`` over a data mesh: the
+    players replicated, each rank calling the result with its own rows;
+    scalar metrics averaged, ``pos_cos`` / ``neg_cos`` gathered in rank
+    order."""
+    return shard_map_step(step_fn, mesh, has_state_out=True,
+                          metric_keys=GAN_METRIC_KEYS, axis_name=axis_name)

@@ -7,7 +7,9 @@ SIGTERM into a checkpoint and a clean stop. ``EpochStats`` also keeps each
 train step's scalar metrics and wall seconds (``steps``), which the JAX
 loop does not. ``scan_chunk = K`` feeds a scanned step
 (``train.steps.make_scanned_step``) K stacked batches a call and drops an
-epoch's trailing partial chunk, as the JAX loop does.
+epoch's trailing partial chunk, as the JAX loop does. Under a process
+group of more than one rank a preemption request on any rank stops every
+rank after the same batch (the flag is all-reduced each step).
 """
 
 from __future__ import annotations
@@ -20,8 +22,11 @@ from typing import Callable, Iterable
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..eval.cosine import CosineSimilaritySink
+from ..parallel.collectives import all_reduce
+from ..parallel.distributed import process_info
 
 log = logging.getLogger("facejax.train")
 
@@ -79,6 +84,16 @@ def _scalars(metrics: dict, check_finite_key: str | None = None
                 raise NonFiniteLossError(f"non-finite {k}: {val}")
             out[k] = val
     return out
+
+
+def _preempted(guard: PreemptionGuard | None, device) -> bool:
+    """Whether any rank's guard asked to stop."""
+    if guard is None:
+        return False
+    if process_info()[1] == 1:
+        return guard.requested
+    flag = torch.tensor(float(guard.requested), device=device)
+    return bool(all_reduce(flag, "max", dist.group.WORLD) > 0)
 
 
 def _stack(parts):
@@ -162,7 +177,7 @@ def train_loop(
                 if sink is not None:
                     sink.append(m["pos_cos"].cpu().numpy(),
                                 m["neg_cos"].cpu().numpy())
-            if preemption_guard is not None and preemption_guard.requested:
+            if _preempted(preemption_guard, state.device):
                 if checkpointer is not None:
                     # saved under the previous completed epoch, so --resume
                     # replays this partial epoch from its start

@@ -8,7 +8,7 @@ statistics (the JAX ``batch_stats``) live in the module's buffers; ``aux``
 holds what else a step threads through, the center-loss table. Per-step
 random draws come from a generator derived from ``(seed, step)``
 (:func:`step_generator`, the port's form of the JAX ``_step_keys``
-fold-in), so a resumed run replays the same draws without storing a
+fold-in; a data-parallel step folds in its data rank), so a resumed run replays the same draws without storing a
 generator.
 """
 
@@ -61,10 +61,13 @@ def create_train_state(model: torch.nn.Module, tx: OptimizerSpec,
                       spec=tx, aux=aux)
 
 
-def step_generator(state: TrainState) -> torch.Generator:
-    """A generator on the state's device seeded from ``(seed, step)``."""
-    word = np.random.SeedSequence([state.seed, state.step]).generate_state(
-        1, np.uint64)[0]
+def step_generator(state: TrainState,
+                   rank: int | None = None) -> torch.Generator:
+    """A generator on the state's device seeded from ``(seed, step)``, or
+    from ``(seed, step, rank)`` for a data-parallel step (the JAX step's
+    fold-in of its data-axis index)."""
+    words = [state.seed, state.step] + ([] if rank is None else [int(rank)])
+    word = np.random.SeedSequence(words).generate_state(1, np.uint64)[0]
     gen = torch.Generator(device=state.device)
     gen.manual_seed(int(word) & ((1 << 63) - 1))
     return gen

@@ -343,10 +343,19 @@ def test_train_loop_scan_chunk_drops_the_partial_chunk():
 
 
 def test_unported_options_name_their_item():
-    with pytest.raises(NotImplementedError, match="item 10"):
-        ttrain.make_backbone_train_step(axis_name="data")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        ttrain.make_backbone_eval_step(class_axis_name="model")
+    """(Named when data and class parallelism refused.) A step built with
+    an axis runs inside its ``shard_map_*`` wrapper, which binds the
+    mesh, and raises outside it; center loss does not combine with class
+    parallelism (the JAX step's text). The parallel steps themselves are
+    held to JAX in tests/test_torch_parallel_train.py."""
+    for step in (ttrain.make_backbone_train_step(axis_name="data"),
+                 ttrain.make_backbone_eval_step(class_axis_name="model")):
+        with pytest.raises(RuntimeError, match="shard_map_"):
+            step(None, None, None, None)
+    with pytest.raises(ValueError, match="center loss is not supported "
+                                         "with class-parallel softmax"):
+        ttrain.make_backbone_train_step(class_axis_name="model",
+                                        center_weight=0.1)
     # bwd_im2col is ported (tests/test_torch_conv_backward.py)
     assert callable(ttrain.make_backbone_train_step(bwd_im2col=True))
 

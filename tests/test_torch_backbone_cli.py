@@ -155,10 +155,37 @@ def test_train_final_on_the_export(run, store, tmp_path):
 
 
 @pytest.mark.parametrize("flag,item", [
-    (["--data-parallel"], "item 10"), (["--class-parallel", "2"], "item 10")])
-def test_unported_flags_exit_naming_their_item(flag, item):
-    with pytest.raises(SystemExit, match=item):
-        train_backbone.main(["--synthetic", "--device", "cpu", *flag])
+    (["--data-parallel"], None),
+    (["--class-parallel", "3"], "--class-parallel 3 must divide the class "
+                                "count 16")])
+def test_unported_flags_exit_naming_their_item(flag, item, tmp_path):
+    """(Named when the flags refused.) Run plainly, ``--data-parallel`` and
+    ``--class-parallel 1`` are a group of one and take the same updates;
+    ``--class-parallel`` exits with the JAX CLI's text when M does not
+    divide the classes. Several ranks: tests/test_torch_parallel_cli.py."""
+    argv = ["--synthetic", "--synthetic-size", "32", "--model", "lightcnn9",
+            "--epochs", "1", "--batch-size", "64", "--mining", "semi_hard",
+            "--optimizer", "sgd", "--device", "cpu"]
+    if item is not None:
+        with pytest.raises(SystemExit, match=item):
+            train_backbone.main(argv + flag + ["--out-dir", str(tmp_path)])
+        return
+    _, dp = train_backbone.main(argv + flag + ["--out-dir",
+                                               str(tmp_path / "dp")])
+    _, cp = train_backbone.main(argv + ["--class-parallel", "1",
+                                        "--out-dir", str(tmp_path / "cp")])
+    # both fold data rank 0 into each step's generator: the same updates,
+    # up to the class-parallel CE's other rounding of the log-sum-exp
+    # (sgd: Adam's first updates are the gradients' signs)
+    got = [s["loss"] for s in dp[0].steps]
+    assert len(got) == 4 and np.isfinite(got).all()
+    np.testing.assert_allclose(got, [s["loss"] for s in cp[0].steps],
+                               rtol=1e-5)
+    a = np.load(tmp_path / "dp" / "export" / "weights.npz")
+    b = np.load(tmp_path / "cp" / "export" / "weights.npz")
+    for k in a.files:
+        np.testing.assert_allclose(a[k], b[k], rtol=0, atol=1e-5,
+                                   err_msg=k)
 
 
 def test_train_backbone_synthetic_options(tmp_path):

@@ -59,6 +59,16 @@ SIDE = 32
 MODELS = {"lightcnn9": JLightCNN9, "lightcnn29": JLightCNN29}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the suite runs in several worker processes at
+    once, and torch's thread pools oversubscribe the cores."""
+    saved = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(saved)
+
+
 def _variables(name, seed=0):
     """A flax net and its variables from numpy: params, and for LightCNN29
     random BatchNorm statistics."""
@@ -171,7 +181,8 @@ def test_exports_load_both_ways(jax_export, tmp_path):
 def test_extract_features_pads_and_refuses(tmp_path):
     """The last batch is padded and its pad rows dropped (features do not
     depend on the batch size); uint8 rows equal float rows / 255;
-    data-parallel extraction refuses, naming its item, and int8 runs."""
+    data-parallel extraction (library and CLI) gives the same rows, and
+    int8 runs."""
     net = from_jax_params(_variables("lightcnn9")[1], device="cpu")
     imgs, labels = tdata.synthetic_faces(num_ids=3, per_id=3, size=SIDE)
     u8 = (imgs * 255.0).clip(0, 255).astype(np.uint8)
@@ -185,11 +196,29 @@ def test_extract_features_pads_and_refuses(tmp_path):
     ff, *_ = extract_features(net, u8.astype(np.float32) / np.float32(255),
                                 batch_size=4)
     np.testing.assert_allclose(ff, f4, rtol=1e-5, atol=1e-6)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        extract_features(net, u8, batch_size=4, data_parallel=True)
-    with pytest.raises(SystemExit, match="item 10"):
-        tcli.main(["--synthetic", "--data-parallel", "--device", "cpu",
-                   "--out-dir", str(tmp_path)])
+    # data-parallel extraction over a group of one gives the same rows
+    # (tests/test_torch_parallel_serve.py: 2 ranks against JAX), and so
+    # does the CLI's --data-parallel
+    from improving_face_recognition_performance_using_triplet_loss_tpu_torch import (
+        parallel,
+    )
+
+    with parallel.process_group("cpu"):
+        fd, _, accd, pd = extract_features(net, u8, labels, batch_size=4,
+                                           data_parallel=True)
+    np.testing.assert_array_equal(fd, f4)
+    np.testing.assert_array_equal(pd, p4)
+    assert accd == acc
+    argv = ["--synthetic", "--model", "lightcnn9", "--device", "cpu",
+            "--batch-size", "16"]
+    dp = tcli.main(argv + ["--data-parallel", "--out-dir",
+                           str(tmp_path / "dp")])
+    plain = tcli.main(argv + ["--out-dir", str(tmp_path / "plain")])
+    for split in ("train", "valid"):
+        np.testing.assert_array_equal(dp[split].features,
+                                      plain[split].features)
+        np.testing.assert_array_equal(dp[split].predictions,
+                                      plain[split].predictions)
     # int8 is ported (tests/test_torch_quantized.py): padded batches too
     q4, *_ = extract_features(net, u8, batch_size=4, int8=True)
     assert q4.shape == f4.shape

@@ -10,8 +10,8 @@ host on both sides and must be equal bit for bit; rows written by ``add``
 / ``set_row`` are normalized on the host here and on the device (in XLA)
 in JAX, so they are held within one f32 ulp (f32), one bf16 ulp (bf16) or
 one int8 step (int8) and equal wherever JAX's value is not within 1e-6 of
-a rounding boundary. The mesh-sharded paths raise naming ROADMAP item
-A10.
+a rounding boundary. The mesh-sharded paths, run over a process group of
+one, equal their unsharded twins.
 """
 
 import jax.numpy as jnp
@@ -26,6 +26,9 @@ from improving_face_recognition_performance_using_triplet_loss_tpu.serve import 
     device_gallery as jdg,
     gallery as jgal,
 )
+from improving_face_recognition_performance_using_triplet_loss_tpu_torch import (
+    parallel,
+)
 from improving_face_recognition_performance_using_triplet_loss_tpu_torch.cli import (
     _common,
 )
@@ -37,6 +40,16 @@ from improving_face_recognition_performance_using_triplet_loss_tpu_torch.serve i
     gallery as tgal,
     pipeline as tpipe,
 )
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the sharded pipelines' convs would otherwise
+    oversubscribe the cores under the suite's workers."""
+    saved = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(saved)
+
 
 DTYPES = {"f32": (jnp.float32, torch.float32),
           "bf16": (jnp.bfloat16, torch.bfloat16),
@@ -216,16 +229,97 @@ def test_unsharded_matchers_match_jax(name):
     np.testing.assert_allclose(tsm, jsm, rtol=0, atol=1e-6)
 
 
+def _world1_dg():
+    """A one-rank row-sharded gallery after adds and a doubling, against
+    the unsharded one."""
+    rows = _rows(11, 5, 4)
+    mesh = parallel.make_2d_mesh(1)
+    got = tdg.DeviceGallery(dim=4, capacity=2, initial=rows[:2], mesh=mesh,
+                            device="cpu")
+    want = tdg.DeviceGallery(dim=4, capacity=2, initial=rows[:2],
+                             device="cpu")
+    for g in (got, want):
+        for v in rows[2:]:
+            g.add(v)
+        g.clear_row(1)
+    assert got.capacity == want.capacity == 8
+    return got.to_host(), want.to_host()
+
+
+def _world1_pipelines(gallery_sharded: bool):
+    """A sharded pipeline over one rank against the unsharded one on the
+    same frame and nets."""
+    from improving_face_recognition_performance_using_triplet_loss_tpu_torch.detect import (
+        MTCNNDetector,
+    )
+    from improving_face_recognition_performance_using_triplet_loss_tpu_torch.models.efm_symbol import (
+        build_efmnet342,
+    )
+
+    torch.manual_seed(0)
+    det = MTCNNDetector(device="cpu")
+    net = build_efmnet342(4, image_size=32, device="cpu",
+                          generator=torch.Generator().manual_seed(0))
+    gallery = _rows(12, 3, 342)
+    frames = (np.random.default_rng(0).random((1, 48, 48, 3)) * 255).astype(
+        np.float32)
+    kw = dict(frame_h=48, frame_w=48, embed_size=32,
+              thresholds=(0.3, 0.3, 0.3), sim_threshold=-1.0, device="cpu")
+    want = tpipe.make_multistream_pipeline(det, net, gallery, **kw)(frames)
+    if gallery_sharded:
+        mesh = parallel.make_2d_mesh(1)
+        gal_n, rows = tpipe.shard_gallery(gallery, mesh, device="cpu")
+        got = tpipe.make_gallery_sharded_multistream_pipeline(
+            det, net, mesh, **kw)(frames, gal_n, rows)
+    else:
+        got = tpipe.make_sharded_multistream_pipeline(
+            det, net, gallery, parallel.make_mesh(), **kw)(frames)
+    assert set(got) == set(want)
+    return ({k: v.numpy() for k, v in got.items()},
+            {k: v.numpy() for k, v in want.items()})
+
+
+def _world1_matcher():
+    gallery = _rows(13, 7, 16)
+    queries = gallery[[1, 6]] + 0.01
+    got = tgal.make_sharded_gallery_matcher(gallery, parallel.make_mesh(),
+                                            device="cpu")(queries)
+    want = tgal.make_gallery_matcher(gallery, device="cpu")(queries)
+    return [t.numpy() for t in got], [t.numpy() for t in want]
+
+
 @pytest.mark.parametrize("call", [
-    lambda: tdg.DeviceGallery(dim=4, mesh=object(), device="cpu"),
-    lambda: tgal.make_sharded_gallery_matcher(np.zeros((2, 4)), object()),
-    lambda: tgal.match_gallery_sharded(np.zeros((2, 4)), np.zeros((1, 4))),
-    lambda: tpipe.shard_gallery(np.zeros((2, 4)), object()),
-    lambda: tpipe.make_sharded_multistream_pipeline(None, None, None, None,
-                                                    object()),
-    lambda: tpipe.make_gallery_sharded_multistream_pipeline(
-        None, None, None, object(), frame_h=8, frame_w=8),
-])
+    _world1_dg,
+    _world1_matcher,
+    lambda: (tgal.match_gallery_sharded(_rows(14, 5, 8), _rows(15, 2, 8),
+                                        device="cpu"),
+             tgal.match_gallery_tpu(_rows(14, 5, 8), _rows(15, 2, 8),
+                                    device="cpu")),
+    lambda: (tpipe.shard_gallery(_rows(16, 3, 8), parallel.make_2d_mesh(1),
+                                 device="cpu")[0].numpy(),
+             tpipe.normalize_gallery(_rows(16, 3, 8), device="cpu").numpy()),
+    lambda: _world1_pipelines(False),
+    lambda: _world1_pipelines(True),
+], ids=[f"call{i}" for i in range(6)])
 def test_sharded_paths_raise_naming_a10(call):
-    with pytest.raises(NotImplementedError, match="item 10"):
-        call()
+    """(Named when these paths refused; each now runs.) Over a process
+    group of one each sharded path equals its unsharded twin exactly:
+    the row-sharded ``DeviceGallery``, the sharded matchers,
+    ``shard_gallery`` and both sharded pipelines
+    (tests/test_torch_parallel_serve.py holds them to JAX on 2 ranks)."""
+    with parallel.process_group("cpu"):
+        got, want = call()
+    _assert_tree_equal(got, want)
+
+
+def _assert_tree_equal(got, want):
+    if isinstance(want, dict):
+        assert set(got) == set(want)
+        for k in want:
+            _assert_tree_equal(got[k], want[k])
+    elif isinstance(want, (tuple, list)):
+        assert len(got) == len(want)
+        for g, w in zip(got, want):
+            _assert_tree_equal(g, w)
+    else:
+        np.testing.assert_array_equal(np.asarray(got), np.asarray(want))

@@ -78,6 +78,16 @@ from improving_face_recognition_performance_using_triplet_loss_tpu_torch.train.s
     step_generator,
 )
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the suite runs in several worker processes at
+    once, and torch's thread pools oversubscribe the cores."""
+    saved = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(saved)
+
+
 T = torch.from_numpy
 D_IN, D_OUT, B = 24, 8, 32
 LR, EMA = 0.05, 0.9

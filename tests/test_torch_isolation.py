@@ -18,6 +18,7 @@ import torch
 
 from improving_face_recognition_performance_using_triplet_loss_tpu_torch import (
     device as tdevice,
+    parallel,
 )
 from improving_face_recognition_performance_using_triplet_loss_tpu_torch.cli import (
     align,
@@ -124,7 +125,10 @@ def test_port_imports_without_jax_or_triton():
                  "ops.quantized", "ops.conv_backward", "eval.projector",
                  "utils.profiling", "utils.cache", "serve.aot",
                  "cli.export_aot", "models.deepface", "models.began_cs",
-                 "losses.began", "train.gan", "cli.train_began"):
+                 "losses.began", "train.gan", "cli.train_began",
+                 "parallel", "parallel.distributed", "parallel.mesh",
+                 "parallel.collectives", "losses.sharded",
+                 "train.sharding"):
         assert f"{PORT}.{name}" in mods, name
     assert int(out[1]) == len(mods) >= 20
 
@@ -145,7 +149,9 @@ def test_port_imports_without_jax_or_triton():
                                    "quantize_lightcnn9_params",
                                    "int8_embed_pipeline", "export_aot",
                                    "train_began", "load_pipeline",
-                                   "load_compiled", "deepface"])
+                                   "load_compiled", "deepface",
+                                   "train_head_data_parallel",
+                                   "parallel_rank_device"])
 def test_default_device_without_cuda_raises(monkeypatch, tmp_path, entry):
     import numpy as np
 
@@ -230,6 +236,10 @@ def test_default_device_without_cuda_raises(monkeypatch, tmp_path, entry):
         "load_compiled": lambda: aot.load_compiled(str(tmp_path / "a.pt2")),
         "deepface": lambda: model_by_name("deepface", 4, input_hw=(65, 65),
                                           in_channels=3),
+        "train_head_data_parallel": lambda: train_head.main([
+            "--synthetic", "--epochs", "1", "--data-parallel",
+            "--out-dir", str(tmp_path)]),
+        "parallel_rank_device": lambda: parallel.rank_device(),
     }[entry]
     if entry.startswith("load_"):
         # a CUDA artifact's sidecar: the loader refuses it before reading

@@ -74,6 +74,16 @@ from improving_face_recognition_performance_using_triplet_loss_tpu_torch.utils.m
 )
 from _torch_weights import flax_params, mtcnn_params
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the suite runs in several worker processes at
+    once, and torch's thread pools oversubscribe the cores."""
+    saved = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(saved)
+
+
 COS_MIN = 0.999
 PROTOCOL = ("accuracy_mean", "accuracy_std", "val", "val_std", "far",
             "n_pairs")

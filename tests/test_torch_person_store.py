@@ -227,8 +227,22 @@ def test_gallery_service_matches_jax(tmp_path, dtype):
         assert list(map(_who, a)) == list(map(_who, b))
         with pytest.raises(KeyError):
             tsvc.add_face(99, feats[0])
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tgs.PersonGalleryService(ts, mesh=object(), device="cpu")
+        # mesh= over a process group of one: the row-sharded service
+        # gives the same answers (tests/test_torch_parallel_serve.py holds
+        # it to JAX's on 2 ranks)
+        from improving_face_recognition_performance_using_triplet_loss_tpu_torch import (
+            parallel,
+        )
+
+        with parallel.process_group("cpu"):
+            msvc = tgs.PersonGalleryService(
+                ts, capacity=4, dtype=tdt, device="cpu",
+                mesh=parallel.make_2d_mesh(1))
+            got = msvc.match_batch(probes, sim_th=0.5)
+            want = tsvc.match_batch(probes, sim_th=0.5)
+            assert list(map(_who, got)) == list(map(_who, want))
+            assert ([r.similarity for r in got]
+                    == [r.similarity for r in want])
 
 
 # ------------------------------------------------------------ identify CLI

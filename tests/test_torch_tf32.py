@@ -38,6 +38,16 @@ from improving_face_recognition_performance_using_triplet_loss_tpu_torch.utils.m
 )
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the suite runs in several worker processes at
+    once, and torch's thread pools oversubscribe the cores."""
+    saved = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(saved)
+
+
 def _lfw_inputs(tmp_path):
     """A four-image LFW tree with two pairs, its pairs.txt, the same
     images as a pair store, and an EFM ``.params`` checkpoint at 32 px
