@@ -11,7 +11,9 @@ all frames. ``int8_embed=True`` runs the embedding net (never MTCNN) on
 the int8 conv route of ``ops/quantized.py`` with one activation scale a
 frame: the JAX package embeds each frame's crops (one, or ``max_faces``
 with the empty slots) in its own call under ``vmap``. The mesh-sharded
-pipelines are not ported yet (ROADMAP.md, queue A).
+pipelines split the frames over a mesh's ranks
+(:func:`make_sharded_multistream_pipeline`) or the gallery's rows as well
+(:func:`shard_gallery`, :func:`make_gallery_sharded_multistream_pipeline`).
 """
 
 from __future__ import annotations

@@ -126,6 +126,32 @@ def _metrics(m):
     return {k: _np(v) for k, v in m.items()}
 
 
+def _record_pick_margins(margins: list) -> None:
+    """Every mining call of this rank's steps appends the least margin of
+    its picks (``_torch_ties.step_pick_margins``) to ``margins``: the test
+    holds it above the rounding a pick could see, so the JAX and port
+    picks cannot differ."""
+    from _torch_ties import step_pick_margins
+    from improving_face_recognition_performance_using_triplet_loss_tpu_torch.train import (
+        gan,
+        steps,
+    )
+
+    real = getattr(steps._mine, "__wrapped__", steps._mine)
+
+    def mine(mode, gen, anc, pos, pool_feat, anchor_labels, pool_labels,
+             *args):
+        if mode != "random":
+            margins.append(step_pick_margins(
+                mode, _np(anc), _np(pos), _np(pool_feat),
+                _np(anchor_labels), _np(pool_labels)))
+        return real(mode, gen, anc, pos, pool_feat, anchor_labels,
+                    pool_labels, *args)
+
+    mine.__wrapped__ = real
+    steps._mine = gan._mine = mine
+
+
 def head_dp_job(p):
     """The head's train and eval steps over a data mesh of every rank,
     fed each rank's block of the global batches."""
@@ -140,6 +166,8 @@ def head_dp_job(p):
         train.sgd_wd(lr=p["lr"]), 0)
     grads: list = []
     _keep_grads(state, grads)
+    margins: list = []
+    _record_pick_margins(margins)
     step = train.shard_map_step(
         train.make_head_train_step(mining_mode=p["mode"], axis_name="data"),
         mesh, has_state_out=True, metric_keys=train.HEAD_METRIC_KEYS)
@@ -153,7 +181,8 @@ def head_dp_job(p):
         local = [parallel.local_block(x, mesh) for x in batch]
         state, m = step(state, *local)
         out.append(_metrics(m))
-    return {"metrics": out, "eval": first_eval, "grads": grads}
+    return {"metrics": out, "eval": first_eval, "grads": grads,
+            "pick_margins": margins}
 
 
 class TinyNet(torch.nn.Module):
@@ -202,9 +231,11 @@ def class_parallel_tiny_job(p):
     step = train.shard_map_step_2d(raw, mesh, specs, has_state_out=True)
     a, pos, lab = (parallel.local_block(x, mesh, "data")
                    for x in p["batch"])
+    margins: list = []
+    _record_pick_margins(margins)
     state, m = step(fresh(), a, pos, lab)
     whole = shards.full_model(state.model)
-    out = {"specs": specs, "metrics": _metrics(m),
+    out = {"specs": specs, "metrics": _metrics(m), "pick_margins": margins,
            "fc1": _np(whole.fc1.weight), "fc2": _np(whole.fc2.weight),
            "fc2_local": tuple(state.model.fc2.weight.shape)}
     seq, losses = fresh(), []
@@ -264,6 +295,8 @@ def backbone_parallel_job(p):
                                         decay_every_steps=1000), 0)
     grads: list = []
     _keep_grads(state, grads)
+    margins: list = []
+    _record_pick_margins(margins)
     raw = train.make_backbone_train_step(
         mining_mode=p["mode"], margin=p.get("margin", 0.2),
         axis_name="data", class_axis_name="model" if m_size else None)
@@ -283,7 +316,8 @@ def backbone_parallel_job(p):
                     torch.from_numpy(g[name]), group))
     stats = (state.model.flax_batch_stats()
              if hasattr(state.model, "flax_batch_stats") else None)
-    return {"metrics": out, "grads": grads, "batch_stats": stats}
+    return {"metrics": out, "grads": grads, "batch_stats": stats,
+            "pick_margins": margins}
 
 
 def gan_dp_job(p):
@@ -306,13 +340,15 @@ def gan_dp_job(p):
     sgd = train.OptimizerSpec(lr=p["lr"], weight_decay=0.0)
     state = create_gan_state(gen, disc, sgd, sgd, 0)
     mesh = parallel.make_mesh()
+    margins: list = []
+    _record_pick_margins(margins)
     step = shard_map_gan_step(make_began_cs_train_step(
         h_dim=h, mining_mode=p["mode"], triplet_margin=2.0,
         axis_name="data"), mesh)
     z = p["z"][dist.get_rank()]
     state, m = step(state, *(parallel.local_block(x, mesh)
                              for x in p["batch"]), z=z)
-    return {"metrics": _metrics(m),
+    return {"metrics": _metrics(m), "pick_margins": margins,
             "disc_grads": {k: _np(q.grad) for k, q in
                            state.discriminator.named_parameters()},
             "gen_grads": {k: _np(q.grad) for k, q in

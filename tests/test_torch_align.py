@@ -10,7 +10,10 @@ and thresholds of 0.3, permissive enough that random weights detect.
 Box and point coordinates match at atol 1e-3 (float32 convs summed in
 another order on each side); counts, ``last_stats`` and the saturation
 warnings must be equal. No score of these seeds lies within 1e-5 of a
-threshold (checked), so rounding cannot flip a candidate.
+threshold (checked), and ``_assert_detect_margins`` holds every NMS of both
+cascades to the same candidates, none within its own rounding of another
+(``tests/_torch_ties.py``), and the face ``select_main_face`` picks to a
+lead over the next that the boxes' rounding cannot undo.
 
 Crops and the ``bounding_boxes.txt`` log are compared EXACTLY. They
 truncate ``det +- margin / 2`` to integers, so a box 1e-4 off an integer
@@ -52,6 +55,13 @@ from improving_face_recognition_performance_using_triplet_loss_tpu_torch.detect 
 from improving_face_recognition_performance_using_triplet_loss_tpu_torch.detect.device_cascade import (
     DeviceCascade,
 )
+from _torch_ties import (
+    assert_cascade_margins,
+    assert_face_rank_margins,
+    assert_host_nms_margins,
+    record_cascade_nms,
+    record_host_nms,
+)
 from _torch_weights import mtcnn_params
 
 H = W = 64
@@ -72,6 +82,39 @@ def dets():
             MTCNNDetector(*params, device="cpu"))
 
 
+def _assert_detect_margins(params, images, how):
+    """The margins that keep rounding from deciding what the cascades
+    detect in ``images``, on fresh detectors of both packages: ``how`` is
+    ``host`` (the host cascade), ``pyramid`` (its device stage 1) or
+    ``device`` (``DeviceCascade``). Every host NMS and every device NMS
+    (``_torch_ties``) of each image, and the face ``select_main_face``
+    picks among the detections."""
+    with pytest.MonkeyPatch.context() as mp, warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        host = record_host_nms(mp)
+        port, jax_calls = record_cascade_nms(mp)
+        jdet = JDetector(*[jmtcnn.load_npy_params(p) for p in params])
+        tdet = MTCNNDetector(*params, device="cpu")
+        jc, tc = JCascade(jdet, thresholds=TH), DeviceCascade(
+            tdet, thresholds=TH)
+        device_th = [TH[0], TH[0]] + ([TH[1], TH[2]] if how == "device"
+                                      else [])
+        for img in images:
+            if how == "device":
+                got, want = tc.detect(img), jc.detect(img)
+            else:
+                pyr = how == "pyramid"
+                got = tdet.detect(img, 20, TH, 0.709, pyr)
+                want = jdet.detect(img, 20, TH, 0.709, pyr)
+            if how != "host":
+                n = len(device_th)
+                assert_cascade_margins(port[-n:], jax_calls[-n:], 1,
+                                       device_th)
+            assert got[0].shape == want[0].shape
+            assert_face_rank_margins(got[0], want[0], *img.shape[:2])
+        assert_host_nms_margins(*host)
+
+
 def _same_boxes(got, want):
     gb, gp = got
     wb, wp = want
@@ -84,7 +127,10 @@ def _same_boxes(got, want):
 
 @pytest.mark.parametrize("device_pyramid", [False, True])
 def test_host_cascade_matches_jax(dets, device_pyramid):
-    _, jdet, tdet = dets
+    params, jdet, tdet = dets
+    _assert_detect_margins(
+        params, [*_frames(0, 2), _frames(1, 1)[0, :, :, 0]],
+        "pyramid" if device_pyramid else "host")
     for img in _frames(0, 2):
         _same_boxes(tdet.detect(img, 20, TH, 0.709, device_pyramid),
                     jdet.detect(img, 20, TH, 0.709, device_pyramid))
@@ -104,9 +150,10 @@ def test_device_cascade_matches_jax(dets):
     frames): boxes, points [10, N], ``last_stats`` and the saturation
     warning. The first frames saturate stage 1's per-scale caps and the
     stage-3 input, the quiet frame saturates nothing."""
-    _, jdet, tdet = dets
+    params, jdet, tdet = dets
     jc, tc = JCascade(jdet, thresholds=TH), DeviceCascade(tdet, thresholds=TH)
     frames = _frames(0, 3)
+    _assert_detect_margins(params, [*frames, frames[2, :, :, 0]], "device")
     want, jw = _with_warnings(lambda: jc.detect_batch(frames))
     got, tw = _with_warnings(lambda: tc.detect_batch(frames))
     assert len(got) == len(want) == 3
@@ -190,8 +237,10 @@ def _detections_off_integers(boxes):
 def test_align_directory_equals_jax(dets, tmp_path, device_cascade):
     """The same PNG names and pixels, the same ``bounding_boxes.txt`` lines
     and the same counts (the unreadable file skipped on both sides)."""
-    _, jdet, tdet = dets
+    params, jdet, tdet = dets
     src = _tree(str(tmp_path / "src"))
+    _assert_detect_margins(params, _frames(4, 6),
+                           "device" if device_cascade else "host")
     kw = dict(image_size=32, margin=8, thresholds=TH,
               device_cascade=device_cascade)
     jout, tout = str(tmp_path / "j"), str(tmp_path / "t")
@@ -229,6 +278,7 @@ def test_align_cli_and_native_export_equal_jax(dets, tmp_path, capsys):
         np.save(path, p, allow_pickle=True)
         weights.append(path)
     src = _tree(str(tmp_path / "src"))
+    _assert_detect_margins(params, _frames(4, 6), "host")
     common = ["--image-size", "24", "--margin", "6", "--thresholds", "0.3",
               "0.3", "0.3", "--det-weights", *weights]
     with warnings.catch_warnings():

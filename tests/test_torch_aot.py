@@ -68,6 +68,12 @@ from improving_face_recognition_performance_using_triplet_loss_tpu_torch.serve.p
     make_recognition_pipeline,
     normalize_gallery,
 )
+from _torch_ties import (
+    assert_cascade_margins,
+    assert_gallery_margins,
+    assert_largest_face_margins,
+    record_cascade_nms,
+)
 from _torch_weights import flax_params, mtcnn_params
 
 PORT = "improving_face_recognition_performance_using_triplet_loss_tpu_torch"
@@ -389,12 +395,33 @@ def test_export_aot_matches_the_jax_artifact(nets, tmp_path):
     """The same weights through both CLIs (``--precision f32``, the
     detector from an ``export_mtcnn`` .npz, a baked gallery): the JAX
     StableHLO artifact and the port's ``.pt2`` on the same seeded frame,
-    ``found`` / ``index`` equal and the similarity within 1e-4."""
-    det_params, params, _, _ = nets
+    ``found`` / ``index`` equal and the similarity within 1e-4. The frame's
+    margins come first: both live pipelines over it take no detection
+    decision within rounding (``_torch_ties``), and the artifacts' best
+    gallery rows lead the next by more than their similarities differ."""
+    from improving_face_recognition_performance_using_triplet_loss_tpu.detect import (
+        MTCNNDetector as JDetector,
+    )
+    from improving_face_recognition_performance_using_triplet_loss_tpu.serve.pipeline import (
+        make_recognition_pipeline as jpipeline,
+    )
+
+    det_params, params, tdet, tmodel = nets
+    frame = _frames(5, 1)[0]
+    gallery = _gallery()
+    with pytest.MonkeyPatch.context() as mp:   # not in the exports
+        port_nms, jax_nms = record_cascade_nms(mp)
+        jkw = {k: v for k, v in KW.items() if k != "device"}
+        jpipeline(JDetector(*[jmtcnn.load_npy_params(p)
+                              for p in det_params]),
+                  JEFMNet342(num_classes=4), {"params": params}, gallery,
+                  **jkw)(frame)
+        make_recognition_pipeline(tdet, tmodel, gallery, **KW)(frame)
+    assert_cascade_margins(port_nms, jax_nms, 1, [TH[0]] * 2 + list(TH[1:]))
+    assert_largest_face_margins(port_nms, jax_nms, 1, H, W)
     export_params(str(tmp_path / "export"), params, model_name="efmnet342",
                   feature_dim=342, input_hw=(32, 32))
     mt = export_mtcnn(str(tmp_path / "mtcnn.npz"), *det_params)
-    gallery = _gallery()
     save_feature_store(str(tmp_path / "g.npz"), gallery,
                        np.arange(G, dtype=np.int64))
     common = ["--export-dir", str(tmp_path / "export"), "--gallery",
@@ -404,10 +431,13 @@ def test_export_aot_matches_the_jax_artifact(nets, tmp_path):
     jpath = jexport_aot.main([*common, "--out", str(tmp_path / "j.shlo")])
     tpath = export_aot.main([*common, "--out", str(tmp_path / "t.pt2"),
                              "--device", "cpu"])
-    frame = _frames(5, 1)[0]
     jout = jaot.load_pipeline(jpath, use_cache_bundle=False)(frame)
     tout = aot.load_pipeline(tpath)(frame)
     assert bool(tout["found"]) and bool(jout["found"])
+    assert_gallery_margins(tout["embedding"].numpy()[None],
+                           np.asarray(jout["embedding"])[None],
+                           gallery / np.linalg.norm(gallery, axis=1,
+                                                    keepdims=True))
     assert int(tout["index"]) == int(jout["index"])
     np.testing.assert_allclose(float(tout["similarity"]),
                                float(jout["similarity"]), atol=1e-4)

@@ -31,6 +31,11 @@ over the three steps (measured): LightCNN9 ~1e-6; LightCNN29 2e-3 (its
 the port's float32 rounding of a tie and route the other way (JAX's
 gradient agrees with a float64 run of the port to 6e-7). A missing
 gradient reads 1 and a gradient of the wrong sign 2.
+
+Picks. Some of these batches' semi-hard and hard picks sit within float32
+rounding of a tie, so each compared step mines with the JAX step's picks
+once each differing pick has been shown a near-tie
+(``_torch_ties.share_picks``).
 """
 
 import copy
@@ -65,6 +70,8 @@ from improving_face_recognition_performance_using_triplet_loss_tpu_torch.models 
 from improving_face_recognition_performance_using_triplet_loss_tpu_torch.models.lightcnn import (
     Dropout,
 )
+
+from _torch_ties import share_picks
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -216,11 +223,13 @@ def _run_jax(step, state, batches):
 
 
 @pytest.mark.parametrize("mode", MODES)
-def test_backbone_train_step_matches_jax(net, mode):
+def test_backbone_train_step_matches_jax(net, mode, monkeypatch):
     """Three train steps: every metric and every leaf's gradient step for
     step, then the weights and (LightCNN29) the BatchNorm running
     statistics, which move with the biased batch variance at flax's
-    momentum 0.9."""
+    momentum 0.9. Each port step mines with the JAX step's picks
+    (``_torch_ties.share_picks``)."""
+    shared = share_picks(monkeypatch)
     name, size, model, tx, jstate, batches = net
     jstep = jax.jit(jtrain.make_backbone_train_step(
         model, tx, mining_mode=mode, margin=MARGIN))
@@ -232,14 +241,15 @@ def test_backbone_train_step_matches_jax(net, mode):
         assert set(tm) == set(ttrain.BACKBONE_METRIC_KEYS)
         _check_metrics(tm, jm)
         _check_grads(name, tstate.model, jg)
-    assert tstate.step == int(jstate.step) == 3
+    assert tstate.step == int(jstate.step) == 3 == len(shared)
     _check_params(tstate, jstate)
     if name == "lightcnn29":   # the statistics did move
         assert not np.allclose(tstate.model.fc1_bn.running_var.numpy(), 1.0)
 
 
 @pytest.mark.parametrize("mode", MODES)
-def test_backbone_eval_step_matches_jax(net, mode):
+def test_backbone_eval_step_matches_jax(net, mode, monkeypatch):
+    shared = share_picks(monkeypatch)
     name, size, model, _, jstate, batches = net
     jstep = jax.jit(jtrain.make_backbone_eval_step(model, mining_mode=mode))
     tstate = _port_state(name, size, jstate)
@@ -247,13 +257,14 @@ def test_backbone_eval_step_matches_jax(net, mode):
     for a, p, l in batches[:2]:
         jm = _np(jstep(jstate, a, p, l))
         _check_metrics(tstep(tstate, a, p, l), jm)
-    assert tstate.step == 0
+    assert tstate.step == 0 and len(shared) == 2
 
 
-def test_backbone_center_loss_matches_jax():
+def test_backbone_center_loss_matches_jax(monkeypatch):
     """``center_weight > 0``: the loss includes the center term, and the
     centers table the state keeps matches the JAX ``aux`` (``index_add``:
     duplicate labels accumulate)."""
+    share_picks(monkeypatch)
     name, size, model, tx, jstate, batches = _net("efmnet342")
     jstate = jstate.replace(aux=jnp.zeros((NC, model.feature_dim)))
     jstep = jax.jit(jtrain.make_backbone_train_step(
@@ -360,10 +371,11 @@ def test_unported_options_name_their_item():
     assert callable(ttrain.make_backbone_train_step(bwd_im2col=True))
 
 
-def test_eval_center_crop_and_uint8_batches_match_jax():
+def test_eval_center_crop_and_uint8_batches_match_jax(monkeypatch):
     """uint8 batches scale on the device as the jitted JAX step scales
     them (``x * float32(1/255)``), and ``crop_size`` takes each row's
     center crop: EFMNet342 at 32x32 evaluated on 40x40 uint8 faces."""
+    share_picks(monkeypatch)
     name, size, model, _, jstate, _ = _net("efmnet342")
     faces, labels = synthetic_faces(num_ids=NC, per_id=4, size=40, seed=1)
     u8 = (faces * 255).astype(np.uint8)
@@ -375,7 +387,8 @@ def test_eval_center_crop_and_uint8_batches_match_jax():
     tstate = _port_state(name, size, jstate)
     for a, p, l in batches:
         assert a.dtype == np.uint8
-        _check_metrics(tstep(tstate, a, p, l), _np(jstep(jstate, a, p, l)))
+        jm = _np(jstep(jstate, a, p, l))
+        _check_metrics(tstep(tstate, a, p, l), jm)
 
 
 def test_anchor_half_only_draws_random_negatives_from_anchors():

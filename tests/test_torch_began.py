@@ -57,6 +57,8 @@ from improving_face_recognition_performance_using_triplet_loss_tpu_torch.train.g
     make_began_cs_train_step,
 )
 
+from _torch_ties import share_picks
+
 SIZE, N, H_DIM, B = 16, 8, 6, 4
 LR = 1e-5
 
@@ -197,9 +199,11 @@ def _check_grads(model, want_grads):
         assert rel <= 1e-4, (path, rel)
 
 
-def test_began_step_matches_jax():
+def test_began_step_matches_jax(monkeypatch):
     """One step from the same weights and ``z``: the JAX step's
-    ``value_and_grad`` of both players against the port's."""
+    ``value_and_grad`` of both players against the port's, the port's
+    step mining with the JAX step's picks (``_torch_ties.share_picks``)."""
+    shared = share_picks(monkeypatch)
     anc, pos, labels = _batch()
     g, d = (JGenerator(size=SIZE, channels=3, n=N, h_dim=H_DIM),
             JAE(size=SIZE, channels=3, n=N, h_dim=H_DIM))
@@ -228,7 +232,7 @@ def test_began_step_matches_jax():
     assert float(jm["loss_triplet"]) > 0     # the triplet term is live
     _check_grads(tstate.discriminator, jstate.disc_opt[0])
     _check_grads(tstate.generator, jstate.gen_opt[0])
-    assert tstate.step == int(jstate.step) == 1
+    assert tstate.step == int(jstate.step) == len(shared) == 1
 
 
 def test_k_t_moves_with_the_balance():

@@ -11,6 +11,13 @@ lr x |grad| DeepFace's near-equal cosines at flax's init may pick another
 semi-hard negative, so one step is compared);
 ``from_jax_params`` telling DeepFace's tree apart; and ``train_backbone``
 / ``extract_features --model deepface`` at 72x72 on the CPU.
+
+At flax's init DeepFace's features are nearly parallel, so some semi-hard
+picks sit on near-ties that float32 rounding decides, and it decides them
+differently on different CPUs. The step test therefore reads the JAX
+step's picks, holds each pick that differs from the port's to the
+near-tie rule of ``tests/_torch_ties.py`` and runs the port's step with
+the JAX step's picks before it compares losses and gradients.
 """
 
 import flax.linen as fnn
@@ -54,6 +61,8 @@ from improving_face_recognition_performance_using_triplet_loss_tpu_torch.serve.c
     export_model,
     from_jax_params,
 )
+
+from _torch_ties import share_picks
 
 NC, B, LR, MARGIN = 5, 6, 1e-5, 2.0
 SIDE, FEAT, LC = 65, 32, 4
@@ -139,7 +148,14 @@ def _recording(tx):
 
 
 @pytest.mark.parametrize("mode", ["semi_hard", "semi_hard_fused"])
-def test_deepface_train_step_matches_jax(mode):
+def test_deepface_train_step_matches_jax(mode, monkeypatch):
+    """One step against the jitted JAX step (``semi_hard_fused``: the
+    port's plain B1 against the Pallas kernel in interpret mode). The
+    picks where the two differ must be near-ties on both sides' own
+    features (``_torch_ties.assert_picks_explained``); the port's step then
+    gathers the JAX step's picks, and its losses, cosines and per-leaf
+    gradients are held to the JAX step's."""
+    shared = share_picks(monkeypatch)
     faces, labels = synthetic_faces(num_ids=NC, per_id=4, size=SIDE,
                                     channels=3, seed=0)
     batches = list(PairBatcher(faces, labels, B, seed=0))[:1]
@@ -188,6 +204,7 @@ def test_deepface_train_step_matches_jax(mode):
                    / np.linalg.norm(want))
             assert rel <= GRAD_RTOL, (path, rel)
     assert tstate.step == int(jstate.step) == 1
+    assert len(shared) == 1 and shared[0]["port"].shape == (B,)
 
 
 def test_convert_tells_deepface_apart(tmp_path):

@@ -5,7 +5,10 @@ The JAX ``extract_features`` CLI and the port's run on one JAX export and
 one ``synthetic_faces`` store: features within 1e-4 (a deep f32 stack summed
 in another order on each side), equal predictions and accuracy, and the
 same files with the same rows in the same order. Exports and stores written
-by either package load in the other.
+by either package load in the other. Predictions are held equal only where
+rounding cannot decide them: each row's two highest logits lie further
+apart than twice the tolerance the values are held to
+(``_torch_ties.argmax_margins``).
 """
 
 import os
@@ -53,6 +56,7 @@ from improving_face_recognition_performance_using_triplet_loss_tpu_torch.serve.c
     from_jax_params,
 )
 
+from _torch_ties import argmax_margins
 from _torch_weights import flax_params
 
 SIDE = 32
@@ -109,6 +113,8 @@ def test_extract_cli_matches_jax(jax_export, tmp_path, monkeypatch):
     u8 = (imgs * 255.0).clip(0, 255).astype(np.uint8)
     logits, _ = make_extract_fn(model)(variables, u8)
     pred = np.asarray(logits).argmax(-1)
+    # no prediction within the features' tolerance of a tie
+    assert np.all(argmax_margins(logits, 1e-4) > 0)
     labels = np.where(np.arange(len(pred)) % 2 == 0, pred, (pred + 1) % 6)
     jrecords.save_image_store(str(tmp_path / "train.npz"), u8, labels)
     jrecords.save_image_store_mmap(str(tmp_path / "valid"), u8[:12],
@@ -192,6 +198,9 @@ def test_extract_features_pads_and_refuses(tmp_path):
     np.testing.assert_allclose(f4, f9, rtol=1e-5, atol=1e-6)
     np.testing.assert_allclose(np.linalg.norm(f4, axis=1), 1.0, rtol=1e-5)
     assert acc == acc9 and np.array_equal(lab, labels)
+    with torch.no_grad():
+        logits = net(torch.from_numpy(u8.astype(np.float32) / 255.0))[0]
+    assert np.all(argmax_margins(logits.numpy(), 1e-5) > 0)
     np.testing.assert_array_equal(p4, p9)
     ff, *_ = extract_features(net, u8.astype(np.float32) / np.float32(255),
                                 batch_size=4)

@@ -41,6 +41,8 @@ from improving_face_recognition_performance_using_triplet_loss_tpu_torch.serve i
     pipeline as tpipe,
 )
 
+from _torch_ties import argmax_margins
+
 @pytest.fixture(autouse=True, scope="module")
 def _one_torch_thread():
     """One intra-op thread: the sharded pipelines' convs would otherwise
@@ -218,6 +220,13 @@ def test_unsharded_matchers_match_jax(name):
     tidx, tsim = tgal.make_gallery_matcher(gallery, dtype=tdt,
                                            device="cpu")(queries)
     assert tidx.dtype == torch.int32
+    # every query's best row leads its runner-up, and clears the 0.999
+    # threshold, by more than the 1e-6 the similarities are held to
+    sims = td.gallery_sims(
+        torch.from_numpy(td.l2_normalize_np(queries)),
+        td.narrow_gallery_np(td.l2_normalize_np(gallery), tdt)).numpy()
+    assert np.all(argmax_margins(sims, 1e-6) > 0)
+    assert np.all(np.abs(sims.max(1) - 0.999) > 1e-6)
     np.testing.assert_array_equal(tidx.numpy(), np.asarray(jidx))
     np.testing.assert_allclose(tsim.numpy(), np.asarray(jsim), rtol=0,
                                atol=1e-6)
@@ -248,7 +257,12 @@ def _world1_dg():
 
 def _world1_pipelines(gallery_sharded: bool):
     """A sharded pipeline over one rank against the unsharded one on the
-    same frame and nets."""
+    same frame and nets. The gallery-sharded one takes
+    :func:`shard_gallery`'s rows, normalized on the host, so its twin is
+    the unsharded pipeline with a ``dynamic_gallery`` fed
+    :func:`normalize_gallery`'s rows (equal to them at world 1, ``call3``),
+    not one that bakes its gallery with ``l2_normalize`` (as the JAX
+    package's does), which may differ from the host's in the last ulp."""
     from improving_face_recognition_performance_using_triplet_loss_tpu_torch.detect import (
         MTCNNDetector,
     )
@@ -265,13 +279,18 @@ def _world1_pipelines(gallery_sharded: bool):
         np.float32)
     kw = dict(frame_h=48, frame_w=48, embed_size=32,
               thresholds=(0.3, 0.3, 0.3), sim_threshold=-1.0, device="cpu")
-    want = tpipe.make_multistream_pipeline(det, net, gallery, **kw)(frames)
     if gallery_sharded:
         mesh = parallel.make_2d_mesh(1)
         gal_n, rows = tpipe.shard_gallery(gallery, mesh, device="cpu")
         got = tpipe.make_gallery_sharded_multistream_pipeline(
             det, net, mesh, **kw)(frames, gal_n, rows)
+        want = tpipe.make_multistream_pipeline(
+            det, net, dynamic_gallery=True, **kw)(
+                frames, tpipe.normalize_gallery(gallery, device="cpu"),
+                torch.tensor(rows, dtype=torch.int32))
     else:
+        want = tpipe.make_multistream_pipeline(det, net, gallery, **kw)(
+            frames)
         got = tpipe.make_sharded_multistream_pipeline(
             det, net, gallery, parallel.make_mesh(), **kw)(frames)
     assert set(got) == set(want)
@@ -301,10 +320,9 @@ def _world1_matcher():
     lambda: _world1_pipelines(False),
     lambda: _world1_pipelines(True),
 ], ids=[f"call{i}" for i in range(6)])
-def test_sharded_paths_raise_naming_a10(call):
-    """(Named when these paths refused; each now runs.) Over a process
-    group of one each sharded path equals its unsharded twin exactly:
-    the row-sharded ``DeviceGallery``, the sharded matchers,
+def test_sharded_paths_equal_unsharded_at_world_1(call):
+    """Over a process group of one each sharded path equals its unsharded
+    twin exactly: the row-sharded ``DeviceGallery``, the sharded matchers,
     ``shard_gallery`` and both sharded pipelines
     (tests/test_torch_parallel_serve.py holds them to JAX on 2 ranks)."""
     with parallel.process_group("cpu"):

@@ -5,7 +5,9 @@ The same weights (a JAX ``LinearHead`` init carried across with
 step, loop and CLIs and through the port's. Losses and cosines agree to
 1e-5 step for step, weights to 1e-6; ``semi_hard_fused`` runs the Pallas
 kernel in interpret mode on the JAX side and kernel B1's plain version on
-the port's.
+the port's. Each compared step of the port mines with the JAX step's picks,
+once each pick that differs has been shown a near-tie
+(``_torch_ties.share_picks``).
 """
 
 import contextlib
@@ -77,6 +79,8 @@ from improving_face_recognition_performance_using_triplet_loss_tpu_torch.serve.c
 from improving_face_recognition_performance_using_triplet_loss_tpu_torch.train.state import (
     step_generator,
 )
+
+from _torch_ties import share_picks
 
 @pytest.fixture(autouse=True, scope="module")
 def _one_torch_thread():
@@ -167,9 +171,10 @@ def test_triplet_loss_matches_jax(normalize, reduction):
 
 @pytest.mark.parametrize("normalize", [False, True])
 @pytest.mark.parametrize("mode", ["semi_hard", "semi_hard_fused", "hard"])
-def test_head_train_step_matches_jax(mode, normalize):
+def test_head_train_step_matches_jax(mode, normalize, monkeypatch):
     """Three SGD steps with a parameter EMA: loss, pos_cos and neg_cos step
     for step to 1e-5, the final kernel and EMA to 1e-6."""
+    shared = share_picks(monkeypatch)
     model, tx, jstate = _jax_state()
     tstate = _port_state(jstate.params)
     jstep = jax.jit(jtrain.make_head_train_step(
@@ -181,14 +186,15 @@ def test_head_train_step_matches_jax(mode, normalize):
         tstate, tm = tstep(tstate, anchor, positive, labels)
         for k in ttrain.HEAD_METRIC_KEYS:
             _close(tm[k].numpy(), jm[k], 1e-5)
-    assert tstate.step == int(jstate.step) == 3
+    assert tstate.step == int(jstate.step) == 3 == len(shared)
     _close(_kernel(tstate), jstate.params["proj"]["kernel"], 1e-6)
     _close(ttrain.get_ema_params(tstate)["proj.weight"].numpy().T,
            jtrain.get_ema_params(jstate.opt_state)["proj"]["kernel"], 1e-6)
 
 
 @pytest.mark.parametrize("mode", ["semi_hard", "semi_hard_fused", "hard"])
-def test_head_eval_step_matches_jax(mode):
+def test_head_eval_step_matches_jax(mode, monkeypatch):
+    shared = share_picks(monkeypatch)
     model, _, jstate = _jax_state(ema=False)
     tstate = _port_state(jstate.params, ema=False)
     jstep = jax.jit(jtrain.make_head_eval_step(model, mining_mode=mode))
@@ -198,7 +204,7 @@ def test_head_eval_step_matches_jax(mode):
         tm = tstep(tstate, anchor, positive, labels)
         for k in ttrain.HEAD_METRIC_KEYS:
             _close(tm[k].numpy(), jm[k], 1e-5)
-    assert tstate.step == 0
+    assert tstate.step == 0 and len(shared) == 2
 
 
 def test_random_mining_replays_from_seed_and_step():
@@ -230,10 +236,12 @@ def _read_csv(path):
     return np.loadtxt(path, dtype=np.float64, ndmin=2)
 
 
-def test_train_loop_matches_jax(tmp_path):
+def test_train_loop_matches_jax(tmp_path, monkeypatch):
     """Two epochs of train + eval through each package's loop with the same
     starting weights, batcher seed and sink: epoch histories and the CSVs
-    agree to 1e-5."""
+    agree to 1e-5. The JAX loop runs first; the port's k-th step mines with
+    the JAX loop's k-th picks."""
+    shared = share_picks(monkeypatch)
     feats, labels = _features(0)
     efeats, elabels = _features(1, num_ids=4)
     model, tx, jstate = _jax_state(ema=False)
@@ -265,6 +273,7 @@ def test_train_loop_matches_jax(tmp_path):
             for k, v in getattr(jh, part).items():
                 assert abs(getattr(th, part)[k] - v) <= 1e-5, (part, k)
         assert len(th.steps) == len(tb)
+    assert len(shared) == 2 * (len(tb) + len(teb))
     tcsv, jcsv = _read_csv(tmp_path / "t.csv"), _read_csv(tmp_path / "j.csv")
     assert tcsv.shape == jcsv.shape == (2 * len(tb) * B, 2)
     _close(tcsv, jcsv, 1e-5)

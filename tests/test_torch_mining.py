@@ -3,7 +3,11 @@
 The same numpy inputs, made from a seed, go through the JAX function and
 the port's. Kernel B1's JAX side is the Pallas kernel in interpret mode;
 the port's wrapper, given CPU tensors, runs its plain version. Every index
-comparison is exact; float outputs agree to 1e-6.
+comparison is exact; float outputs agree to 1e-6. The miners take the same
+distances on both sides, so only their own rules decide; B1 computes its
+distances from rows, so every float case first asserts that no pick lies
+within ``PICK_EPS`` of a near-tie (``_torch_ties.semi_hard_margins``), and
+the integer cases are exact arithmetic.
 """
 
 import jax
@@ -26,6 +30,8 @@ from improving_face_recognition_performance_using_triplet_loss_tpu_torch.ops imp
 from improving_face_recognition_performance_using_triplet_loss_tpu_torch.ops.cuda import (
     mining as tkernel,
 )
+
+from _torch_ties import PICK_EPS, semi_hard_margins, sq_distances
 
 T = torch.from_numpy
 
@@ -155,6 +161,11 @@ def _b1_case(seed, b=64, n=128, d=32, ids=10, integer=False):
     return anc, pos_sq, rng.integers(0, ids, b), pool, rng.integers(0, ids, n)
 
 
+def _b1_margins(case):
+    anc, pos_sq, al, pool, pl = case
+    return semi_hard_margins(sq_distances(anc, pool), pos_sq, al, pl)
+
+
 def _b1_both(case, tile_b, tile_n):
     anc, pos_sq, al, pool, pl = case
     want = _np(semi_hard_mining_pallas(
@@ -168,12 +179,16 @@ def _b1_both(case, tile_b, tile_n):
 
 @pytest.mark.parametrize("seed", [0, 1, 2])
 def test_b1_matches_pallas(seed):
-    got, want = _b1_both(_b1_case(seed), 32, 32)
+    case = _b1_case(seed)
+    assert _b1_margins(case).min() > PICK_EPS
+    got, want = _b1_both(case, 32, 32)
     np.testing.assert_array_equal(got, want)
 
 
 def test_b1_single_tile():
-    got, want = _b1_both(_b1_case(3, b=16, n=16), 16, 16)
+    case = _b1_case(3, b=16, n=16)
+    assert _b1_margins(case).min() > PICK_EPS
+    got, want = _b1_both(case, 16, 16)
     np.testing.assert_array_equal(got, want)
 
 
@@ -182,6 +197,7 @@ def test_b1_fallback_to_farthest():
     farthest negative."""
     anc, _, al, pool, pl = _b1_case(4, b=32, n=64)
     pos_sq = np.full(32, 100.0, np.float32)
+    assert _b1_margins((anc, pos_sq, al, pool, pl)).min() > PICK_EPS
     got, want = _b1_both((anc, pos_sq, al, pool, pl), 32, 32)
     np.testing.assert_array_equal(got, want)
     sq = tdist.pairwise_sq_l2(T(anc), T(pool)).numpy()
@@ -216,6 +232,7 @@ def test_b1_plain_is_the_oracle_on_ragged_shapes():
     """Shapes no tile divides: the wrapper's plain version equals the JAX
     oracle (the Pallas kernel itself refuses such shapes)."""
     anc, pos_sq, al, pool, pl = _b1_case(7, b=30, n=50, d=20)
+    assert _b1_margins((anc, pos_sq, al, pool, pl)).min() > PICK_EPS
     want = _np(jmining.mine_semi_hard_negative(
         jdist.pairwise_sq_l2(jnp.asarray(anc), jnp.asarray(pool)),
         jnp.asarray(pos_sq), jnp.asarray(al), jnp.asarray(pl)))

@@ -29,6 +29,7 @@ from improving_face_recognition_performance_using_triplet_loss_tpu_torch.ops imp
 from improving_face_recognition_performance_using_triplet_loss_tpu_torch.ops.cuda import (
     nms as tnms,
 )
+from _torch_ties import OVERLAP_EPS, overlap_margins
 from test_torch_ops import _nms_cases, _soup
 
 ALL = (1 << 64) - 1
@@ -304,7 +305,10 @@ CASES = ["per_scale", "cross_scale", "stage2", "stage3", "union", "min",
 
 @pytest.mark.parametrize("case", CASES)
 def test_model_matches_plain_jax_and_pallas(results, case):
+    """Each side computes the overlaps of the same boxes in its own
+    float32 order: none lies within ``OVERLAP_EPS`` of the threshold."""
     th, m, sets, model, fixed, pallas = results[case]
+    assert min(overlap_margins(one, th, m) for one in sets) > OVERLAP_EPS
     plain = tnms.nms_mask_plain(torch.from_numpy(sets), th, m).numpy()
     np.testing.assert_array_equal(model, plain)
     np.testing.assert_array_equal(model, fixed)
@@ -362,6 +366,7 @@ def test_model_global_mode_at_2048_rows():
     b = np.stack([_soup(rng, 2048, invalid=0.2)])
     b[..., :4] *= 4
     assert _layout(2048)[3]
+    assert overlap_margins(b[0], 0.5) > OVERLAP_EPS
     model = model_keep_mask(b, 0.5, "Union")
     plain = tnms.nms_mask_plain(torch.from_numpy(b), 0.5, "Union").numpy()
     np.testing.assert_array_equal(model, plain)

@@ -47,6 +47,8 @@ from improving_face_recognition_performance_using_triplet_loss_tpu_torch.ops.cud
     stem as tstem,
 )
 
+from _torch_ties import OVERLAP_EPS, overlap_margins
+
 T = torch.from_numpy
 
 
@@ -201,7 +203,14 @@ def nms_results():
 
 
 def _check_nms(case, oracle=True):
+    """The port's masks equal JAX's and the oracle's. Every side takes the
+    same boxes, but each computes the overlaps in its own float32 order:
+    no overlap of a set lies within ``OVERLAP_EPS`` of the threshold, so
+    that rounding cannot decide a suppression (scores are inputs, and
+    their ties go by the tie rule)."""
     threshold, method, sets, fixed, pallas = case
+    for one in sets:
+        assert overlap_margins(one, threshold, method) > OVERLAP_EPS
     got = tboxes.nms_mask_batched(T(sets), threshold, method).numpy()
     np.testing.assert_array_equal(got, fixed)
     np.testing.assert_array_equal(got, pallas)
@@ -273,6 +282,14 @@ def test_box_helpers_and_pnet_decode_match_jax():
     hreg = rng.normal(scale=0.1, size=(2, 19, 23, 4)).astype(np.float32)
     scale = 0.6 * 0.709 ** 3
     decode = jax.jit(jboxes.decode_pnet_topk_jax, static_argnums=(2, 3, 4))
+    # every box corner the decode truncates, (2 p + 1) / scale and
+    # (2 p + 12) / scale, clears an integer by far more than the float32
+    # rounding of its product; the scores are inputs, and their ties go by
+    # the index rule
+    pos = np.arange(23, dtype=np.float64)
+    inv = np.float64(np.float32(1.0 / scale))
+    corners = np.concatenate([(2 * pos + 1) * inv, (2 * pos + 12) * inv])
+    assert np.abs(corners - np.round(corners)).min() > 1e-4
     got = tboxes.decode_pnet_topk(T(imap), T(hreg), scale, 0.3, 64).numpy()
     for i in range(2):
         np.testing.assert_array_equal(

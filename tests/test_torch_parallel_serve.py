@@ -35,6 +35,15 @@ import torch
 from jax.sharding import Mesh
 
 from _torch_ranks import run_ranks
+from _torch_ties import (
+    argmax_margins,
+    assert_cascade_margins,
+    assert_gallery_margins,
+    assert_largest_face_margins,
+    assert_match_margins,
+    record_cascade_nms,
+    unit_rows,
+)
 from _torch_weights import flax_params, mtcnn_params
 from improving_face_recognition_performance_using_triplet_loss_tpu.detect import (
     MTCNNDetector as JMTCNNDetector,
@@ -189,6 +198,8 @@ def test_sharded_extraction_matches_jax(ranks):
         want.append(np.asarray(ft))
     want = np.concatenate(want)[:20]
     preds = np.concatenate(want_logits)[:20].argmax(-1)
+    # no prediction within the features' tolerance of a tie
+    assert np.all(argmax_margins(np.concatenate(want_logits)[:20], 1e-4) > 0)
     port = model_by_name("lightcnn9", 6, input_hw=(SIDE, SIDE),
                          params=params, device="cpu")
     q1, _, qacc, qpred = extract_features(port, u8, labels, batch_size=8,
@@ -214,6 +225,15 @@ def test_sharded_gallery_matcher_matches_jax(ranks):
     idx, sim = jmatch_sharded(gallery, queries, 0.1,
                               mesh=jmake_mesh(jax.devices()[:2]))
     assert idx[0] == 2 and idx[1] == 10
+    # every best row leads its runner-up, and clears the 0.1 threshold, by
+    # more than the 1e-6 the similarities are held to; row 7 repeats row 2
+    # exactly, a tie that the first-row rule decides without rounding
+    g = gallery / np.linalg.norm(gallery, axis=1, keepdims=True)
+    sims = (queries / np.linalg.norm(queries, axis=1, keepdims=True)) @ g.T
+    valid = np.all(np.isfinite(gallery), 1)
+    valid[7] = False
+    assert np.all(argmax_margins(sims, 1e-6, valid=valid) > 0)
+    assert np.all(np.abs(np.where(valid, sims, -np.inf).max(1) - 0.1) > 1e-6)
     for got_idx, got_sim in (r["gallery_job"] for r in ranks["ranks"]):
         np.testing.assert_array_equal(got_idx, idx)
         np.testing.assert_allclose(got_sim, sim, rtol=0, atol=1e-6)
@@ -226,6 +246,41 @@ def _jax_serving():
         frames
 
 
+def _assert_serving_margins(monkeypatch, outs, want, rows_n):
+    """The margins of the sharded pipelines' comparisons: the device
+    cascade of the port (in this process, over all the frames) against the
+    JAX one frame by frame (``_torch_ties.assert_cascade_margins``), the
+    face each frame picks (``assert_largest_face_margins``), and each
+    rank's gallery match against JAX's (``assert_gallery_margins``)."""
+    from improving_face_recognition_performance_using_triplet_loss_tpu.detect.device_cascade import (
+        make_device_cascade as jcascade,
+    )
+    from improving_face_recognition_performance_using_triplet_loss_tpu_torch.detect import (
+        MTCNNDetector,
+    )
+    from improving_face_recognition_performance_using_triplet_loss_tpu_torch.detect.device_cascade import (
+        make_device_cascade as tcascade,
+    )
+
+    det_params, _, _, frames = _serving_inputs()
+    port, jax_calls = record_cascade_nms(monkeypatch)
+    jdet = JMTCNNDetector(*[jmtcnn.load_npy_params(p) for p in det_params])
+    jfn = jcascade(jdet.pnet_params, jdet.rnet_params, jdet.onet_params, H,
+                   W, thresholds=TH)
+    for f in frames:
+        jfn(jnp.asarray(f))
+    tdet = MTCNNDetector(*det_params, device="cpu")
+    tcascade(tdet.pnet, tdet.rnet, tdet.onet, H, W, thresholds=TH,
+             device="cpu")(frames)
+    n = len(frames)
+    assert_cascade_margins(port, jax_calls, n, [TH[0], TH[0], TH[1], TH[2]])
+    assert_largest_face_margins(port, jax_calls, n, H, W)
+    found = np.asarray(want["found"])
+    for out in outs:
+        assert_gallery_margins(out["embedding"][found],
+                               np.asarray(want["embedding"])[found], rows_n)
+
+
 def _assert_same(got, want):
     for key in ("found", "index", "cap_dropped"):
         np.testing.assert_array_equal(got[key], np.asarray(want[key]), key)
@@ -236,12 +291,15 @@ def _assert_same(got, want):
                                    atol=1e-4)
 
 
-def test_sharded_multistream_pipeline_matches_jax(ranks):
+def test_sharded_multistream_pipeline_matches_jax(ranks, monkeypatch):
     jdet, model, variables, gallery, frames = _jax_serving()
     fn = jsharded(jdet, model, variables, gallery,
                   jmake_mesh(jax.devices()[:2]), **KW)
     want = fn(frames)
     assert np.asarray(want["found"]).any()
+    _assert_serving_margins(
+        monkeypatch, [r["pipelines_job"]["sharded"] for r in ranks["ranks"]],
+        want, gallery / np.linalg.norm(gallery, axis=1, keepdims=True))
     with pytest.raises(ValueError) as err:
         fn(frames[:3])
     for out in (r["pipelines_job"] for r in ranks["ranks"]):
@@ -249,13 +307,17 @@ def test_sharded_multistream_pipeline_matches_jax(ranks):
         assert out["error"] == str(err.value)
 
 
-def test_gallery_sharded_pipeline_matches_jax(ranks):
+def test_gallery_sharded_pipeline_matches_jax(ranks, monkeypatch):
     jdet, model, variables, gallery, frames = _jax_serving()
     mesh = Mesh(np.array(jax.devices()[:2]).reshape(1, 2), ("data", "model"))
     gal_n, rows = jshard_gallery(gallery, mesh)
     kw = {k: v for k, v in KW.items()}
     fn = jgallery_sharded(jdet, model, variables, mesh, **kw)
     want = fn(frames, gal_n, rows)
+    _assert_serving_margins(
+        monkeypatch,
+        [r["pipelines_job"]["gallery_sharded"] for r in ranks["ranks"]],
+        want, np.asarray(gal_n)[:rows])
     with pytest.raises(ValueError) as err:
         fn(frames[:3], gal_n, rows)
     full = np.asarray(gal_n)
@@ -311,6 +373,9 @@ def test_sharded_device_gallery_matches_jax(ranks):
 def test_sharded_gallery_service_matches_jax(ranks):
     feats, labels = _clustered()
     probes = feats[[0, 3, 6, 9, 12]] + 0.02
+    # the galleries hold subsets of these faces as they change; the
+    # similarities are held to 1e-6
+    assert_match_margins(probes, unit_rows(feats), 0.5, 1e-6, subsets=True)
     path = str(ranks["tmp"] / "j.sqlite")
     _fill_store(jps, path, feats, labels)
     mesh = Mesh(np.array(jax.devices()[:2]).reshape(1, 2), ("data", "model"))

@@ -16,6 +16,9 @@ conftest's CPU mesh:
 
 The CLIs, the world-1 equalities and checkpoints are in
 tests/test_torch_parallel_cli.py. Tolerances are stated at each check.
+Each rank reports the least margin of its steps' mining picks
+(``_torch_ties.step_pick_margins``): above ``PICK_EPS``, rounding cannot
+make its picks differ from the JAX step's.
 """
 
 import flax.linen as fnn
@@ -28,6 +31,7 @@ import torch
 from jax.sharding import Mesh
 
 from _torch_ranks import run_ranks
+from _torch_ties import PICK_EPS, argmax_margins
 from improving_face_recognition_performance_using_triplet_loss_tpu import (
     train as jtrain,
 )
@@ -230,6 +234,7 @@ def test_head_dp_step_matches_jax(two):
     want_eval = _np(jev(state, *batches[0]))
     w, wg, _ = _jax_dp_first_step(jstep, state, batches[0])
     for out in (r["head_dp_job"] for r in two["ranks"]):
+        assert min(out["pick_margins"]) > PICK_EPS
         got = out["metrics"][0]
         assert got["loss"] == pytest.approx(float(w["loss"]), rel=1e-5)
         for k in ("pos_cos", "neg_cos"):
@@ -256,6 +261,7 @@ def test_backbone_dp_step_matches_jax(two):
         jmake_mesh(jax.devices()[:2]), has_state_out=True)
     w, wg, new = _jax_dp_first_step(jstep, state, batches[0], _no_dropout)
     for out in (r["backbone_parallel_job"] for r in two["ranks"]):
+        assert min(out["pick_margins"]) > PICK_EPS
         got = out["metrics"][0]
         for k in ("loss", "id_loss", "tl_loss"):
             assert got[k] == pytest.approx(float(w[k]), rel=1e-3), k
@@ -290,6 +296,7 @@ def test_gan_dp_step_matches_jax(two):
     )
 
     for out in (r["gan_dp_job"] for r in two["ranks"]):
+        assert min(out["pick_margins"]) > PICK_EPS
         for k, v in out["metrics"].items():
             if k in ("pos_cos", "neg_cos"):
                 np.testing.assert_allclose(v, m[k], atol=1e-5)
@@ -368,7 +375,16 @@ def test_class_parallel_step_matches_jax(four):
         mesh, specs, has_state_out=True)
     jstate, jm = jstep(state, *batch)
     jm = _np(jm)
+    # the accuracy is held exactly: no row's two best logits (float64 from
+    # the same weights) lie within the losses' 1e-5 of a tie
+    pr = {k: {n: np.asarray(v, np.float64) for n, v in e.items()}
+          for k, e in state.params.items()}
+    x = np.concatenate(batch[:2]).reshape(16, -1).astype(np.float64)
+    feat = np.tanh(x @ pr["fc1"]["kernel"] + pr["fc1"]["bias"])
+    logits = feat @ pr["fc2"]["kernel"] + pr["fc2"]["bias"]
+    assert np.all(argmax_margins(logits, 1e-5) > 0)
     for out in (r["class_parallel_tiny_job"] for r in four):
+        assert min(out["pick_margins"]) > PICK_EPS
         assert out["specs"] == {"fc2.weight": "model", "fc2.bias": "model"}
         assert out["fc2_local"] == (C4 // 2, 8)
         m = out["metrics"]

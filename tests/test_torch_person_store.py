@@ -10,7 +10,10 @@ the gallery service) hold persons exactly and similarities within 1e-6
 ``identify`` subcommand's printed result and JSONL equal the JAX CLI's,
 similarities to the JSONL's 6 digits (the f32 device routes within
 1e-6 before that rounding, so within 2e-6 after it); the native inputs (``--native-export``, ``--native-mtcnn``) run
-the same C++ library on both sides and are exact.
+the same C++ library on both sides and are exact. Each device comparison
+first asserts the margins that keep rounding from deciding a match
+(``_torch_ties.assert_match_margins``; for int8, that both packages'
+normalizations give the same int8 codes).
 """
 
 import json
@@ -48,6 +51,7 @@ from improving_face_recognition_performance_using_triplet_loss_tpu_torch.serve i
     native as tnative,
     person_store as tps,
 )
+from _torch_ties import assert_match_margins, int8_margins, unit_rows
 from _torch_weights import flax_params, mtcnn_params
 
 DIM = 32
@@ -83,6 +87,27 @@ def _fill(ps, root, feats, labels):
         store.promote_registration(rid, ps.Person(name="dave"))
         store.register_card_only("card-10", [feats[labels == 3][2]])
         return a
+
+
+def _assert_int8_codes(x):
+    """Rows ``x`` normalized by the port (on the host and on the device)
+    and by JAX (in XLA) narrow to the same int8 codes: no entry's ``127 x``
+    lies within the normalizations' difference of a rounding edge."""
+    import jax.numpy as jnp
+    import torch
+
+    from improving_face_recognition_performance_using_triplet_loss_tpu.ops import (
+        distances as jdist,
+    )
+    from improving_face_recognition_performance_using_triplet_loss_tpu_torch.ops import (
+        distances as tdist,
+    )
+
+    x = np.asarray(x, np.float32)
+    want = np.asarray(jdist.l2_normalize(jnp.asarray(x)))
+    for got in (tdist.l2_normalize(torch.from_numpy(x)).numpy(),
+                tdist.l2_normalize_np(x)):
+        assert int8_margins(got, want) > 0
 
 
 def _who(r):
@@ -155,6 +180,10 @@ def test_match_and_match_batch_equal_jax(tmp_path):
                                  size=(2, DIM)).astype(np.float32)])
     _fill(jps, str(tmp_path / "j"), feats, labels)
     _fill(tps, str(tmp_path / "t"), feats, labels)
+    # the faces a match sees: alice's, bob's and dave's (carol is retired
+    # and card-10 pending); the device route is held to 1e-6
+    assert_match_margins(probes, unit_rows(feats[[0, 1, 2, 3, 4, 5, 9, 10]]),
+                         0.5, 1e-6)
     with jps.PersonStore(str(tmp_path / "j.sqlite"), DIM) as js, \
             tps.PersonStore(str(tmp_path / "t.sqlite"), DIM,
                             device="cpu") as ts:
@@ -186,6 +215,13 @@ def test_gallery_service_matches_jax(tmp_path, dtype):
                 "int8": (jnp.int8, torch.int8)}[dtype]
     feats, labels = _clustered(n_ids=5)
     probes = feats[[0, 3, 6, 9, 12]] + 0.02
+    # the galleries hold subsets of these faces as they change
+    if dtype == "int8":
+        _assert_int8_codes(probes)
+        _assert_int8_codes(feats)
+    else:
+        assert_match_margins(probes, unit_rows(feats), 0.5, 1e-6,
+                             subsets=True)
     with jps.PersonStore(str(tmp_path / "j.sqlite"), DIM) as js, \
             tps.PersonStore(str(tmp_path / "t.sqlite"), DIM) as ts:
         for store, ps in ((js, jps), (ts, tps)):
@@ -281,8 +317,26 @@ def test_identify_person_subcommands_match_jax(tmp_path, capsys):
     store = str(tmp_path / "f.npz")
     save_feature_store(store, feats, labels)
     probes = str(tmp_path / "p.npz")
-    save_feature_store(probes, feats + 0.01 * np.random.default_rng(2).normal(
-        size=feats.shape).astype(np.float32), labels)
+    pfeats = feats + 0.01 * np.random.default_rng(2).normal(
+        size=feats.shape).astype(np.float32)
+    save_feature_store(probes, pfeats, labels)
+    # a match reports the person: persons 0 and 1, then 2 as well, held to
+    # the JSONL's 2e-6, on f32 and bf16 rows; int8 codes equal
+    import torch
+
+    from improving_face_recognition_performance_using_triplet_loss_tpu_torch.ops.distances import (
+        l2_normalize_np,
+        narrow_gallery_np,
+    )
+
+    stored = l2_normalize_np(feats)
+    bf16 = narrow_gallery_np(stored, torch.bfloat16).float().numpy()
+    for rows in (stored, bf16):
+        for n in (2, 3):
+            assert_match_margins(pfeats, rows[labels < n], 0.5, 2e-6,
+                                 owners=labels[labels < n])
+    _assert_int8_codes(pfeats)
+    _assert_int8_codes(feats)
     db = ["--store", "{d}/p.sqlite"]
     for label, name in ((0, "alice"), (1, "bob")):
         (t, j) = _run_both(capsys, ["enroll-person", *db, "--features",

@@ -8,8 +8,15 @@ into the port. Integer and boolean outputs (``found``, ``index``,
 match at atol 1e-3 and similarities and embeddings at 1e-4 (float32 convs
 summed in another order on each side).
 
-No detection score of these seeds lies within 1e-5 of a threshold (checked
-below), so rounding differences cannot flip a candidate.
+The two sides' convolutions round differently, so each comparison first
+asserts the margins that keep rounding from deciding what it compares
+(``tests/_torch_ties.py``): every NMS of both cascades sees the same valid
+candidates, no two of them (with different boxes) within their own
+rounding of each other and none within its rounding of its threshold, and
+the final scores clear the last threshold by 1e-5; the face the pipelines
+pick leads the runner-up by more than its boxes' rounding can move it, and
+its best gallery row leads the next by more than the two sides'
+similarities differ.
 """
 
 import jax
@@ -55,6 +62,12 @@ from improving_face_recognition_performance_using_triplet_loss_tpu_torch.serve.p
     make_recognition_pipeline,
     normalize_gallery,
 )
+from _torch_ties import (
+    assert_cascade_margins,
+    assert_gallery_margins,
+    assert_largest_face_margins,
+    record_cascade_nms,
+)
 from _torch_weights import flax_params, mtcnn_params
 
 @pytest.fixture(autouse=True, scope="module")
@@ -79,6 +92,15 @@ def _frames(seed, n):
 
 
 @pytest.fixture(scope="module")
+def nms_calls():
+    """The NMS inputs of both packages' cascades (``record_cascade_nms``),
+    recorded for the whole module: the JAX pipeline fixture is traced
+    once, with the recording compiled in. Tests clear the lists."""
+    with pytest.MonkeyPatch.context() as mp:
+        yield record_cascade_nms(mp)
+
+
+@pytest.fixture(scope="module")
 def nets():
     """(JAX detector, JAX model, params, port detector, port model)."""
     det_params = [mtcnn_params(spec, seed=i) for i, spec in enumerate(
@@ -98,20 +120,29 @@ def nets():
 
 
 @pytest.fixture(scope="module")
-def jax_pipeline(nets):
+def jax_pipeline(nets, nms_calls):
     jdet, model, params, _, _ = nets
     gallery = np.random.default_rng(5).normal(size=(5, 342))
     return gallery, j_pipeline(jdet, model, {"params": params}, gallery, **KW)
 
 
-def test_device_stage1_matches_jax(nets):
+def _clear(nms_calls):
+    for calls in nms_calls:
+        calls.clear()
+
+
+def test_device_stage1_matches_jax(nets, nms_calls):
     jdet, _, _, tdet, _ = nets
+    _clear(nms_calls)
     frames = _frames(0, 2)
     jfn = j_stage1(jdet.pnet_params, H, W, threshold=TH[0], with_counts=True)
     tout, tdrop = make_device_stage1(tdet.pnet, H, W, threshold=TH[0],
                                      with_counts=True, device="cpu")(frames)
+    jouts = [[np.asarray(a) for a in jfn(jnp.asarray(f))] for f in frames]
+    # the per-scale and cross-scale NMS: no decision within rounding
+    assert assert_cascade_margins(*nms_calls, 2, [TH[0]] * 2) > 2
     for i in range(2):
-        jout, jdrop = (np.asarray(a) for a in jfn(jnp.asarray(frames[i])))
+        jout, jdrop = jouts[i]
         got = tout[i].numpy()
         valid = np.isfinite(jout[:, 4])
         assert valid.any()
@@ -122,17 +153,19 @@ def test_device_stage1_matches_jax(nets):
         assert np.all(np.abs(jout[valid, 4] - TH[0]) > 1e-5)
 
 
-def test_device_cascade_matches_jax(nets):
+def test_device_cascade_matches_jax(nets, nms_calls):
     jdet, _, _, tdet, _ = nets
+    _clear(nms_calls)
     frames = _frames(2, 2)
     jfn = j_cascade(jdet.pnet_params, jdet.rnet_params, jdet.onet_params,
                     H, W, thresholds=TH)
     tboxes, tpts, tcounts = make_device_cascade(
         tdet.pnet, tdet.rnet, tdet.onet, H, W, thresholds=TH,
         device="cpu")(frames)
+    jouts = [[np.asarray(a) for a in jfn(jnp.asarray(f))] for f in frames]
+    assert assert_cascade_margins(*nms_calls, 2, CASCADE_TH) > 4
     for i in range(2):
-        jboxes, jpts, jcounts = (np.asarray(a)
-                                 for a in jfn(jnp.asarray(frames[i])))
+        jboxes, jpts, jcounts = jouts[i]
         valid = np.isfinite(jboxes[:, 4])
         assert valid.any()
         np.testing.assert_array_equal(np.isfinite(tboxes[i, :, 4].numpy()),
@@ -145,6 +178,25 @@ def test_device_cascade_matches_jax(nets):
         assert np.all(np.abs(jboxes[valid, 4] - TH[2]) > 1e-5)
 
 
+# the score threshold that let in the candidates of each NMS of a frame's
+# cascade: stage 1's per-scale and cross-scale passes, stages 2 and 3
+CASCADE_TH = [TH[0], TH[0], TH[1], TH[2]]
+
+
+def _assert_pipeline_margins(nms_calls, frames, outs, wants, gallery):
+    """The margins of a single-face pipeline comparison over ``frames``
+    frames: the cascade's (``assert_cascade_margins``), the face it picks
+    (``assert_largest_face_margins``) and the gallery row it matches
+    (``assert_gallery_margins``, from ``outs`` and ``wants``)."""
+    assert_cascade_margins(*nms_calls, frames, CASCADE_TH)
+    assert_largest_face_margins(*nms_calls, frames, H, W)
+    found = np.array([bool(o["found"]) for o in outs])
+    emb, wemb = (np.stack([np.asarray(o["embedding"]) for o in side])[found]
+                 for side in (outs, wants))
+    assert_gallery_margins(
+        emb, wemb, gallery / np.linalg.norm(gallery, axis=1, keepdims=True))
+
+
 def _assert_same(got, want):
     for key in ("found", "index", "cap_dropped"):
         assert np.asarray(got[key]) == np.asarray(want[key]), key
@@ -155,19 +207,21 @@ def _assert_same(got, want):
                                    np.asarray(want[key]), atol=1e-4)
 
 
-def test_recognition_pipeline_matches_jax(nets, jax_pipeline):
+def test_recognition_pipeline_matches_jax(nets, jax_pipeline, nms_calls):
     _, _, _, tdet, tmodel = nets
     gallery, jfn = jax_pipeline
     tfn = make_recognition_pipeline(tdet, tmodel, gallery, device="cpu", **KW)
     frame = _frames(0, 1)[0]
+    _clear(nms_calls)
     want = jfn(jnp.asarray(frame))
     assert bool(want["found"])
     got = {k: v.numpy() for k, v in tfn(frame).items()}
     assert got["box"].shape == (4,) and got["embedding"].shape == (342,)
+    _assert_pipeline_margins(nms_calls, 1, [got], [want], gallery)
     _assert_same(got, want)
 
 
-def test_multistream_pipeline_matches_jax(nets, jax_pipeline):
+def test_multistream_pipeline_matches_jax(nets, jax_pipeline, nms_calls):
     """Every stream of the port's batched pipeline equals the JAX
     single-frame pipeline on that frame (which tests/test_fused_pipeline.py
     pins to the JAX multistream one); the dynamic gallery, f32 or bf16,
@@ -175,12 +229,15 @@ def test_multistream_pipeline_matches_jax(nets, jax_pipeline):
     _, _, _, tdet, tmodel = nets
     gallery, jfn = jax_pipeline
     frames = _frames(5, 3)
+    _clear(nms_calls)
     out = make_multistream_pipeline(tdet, tmodel, gallery, device="cpu",
                                     **KW)(frames)
     assert out["box"].shape == (3, 4) and out["embedding"].shape == (3, 342)
+    wants = [jfn(jnp.asarray(f)) for f in frames]
+    got = [{k: v[i].numpy() for k, v in out.items()} for i in range(3)]
+    _assert_pipeline_margins(nms_calls, 3, got, wants, gallery)
     for i in range(3):
-        _assert_same({k: v[i].numpy() for k, v in out.items()},
-                     jfn(jnp.asarray(frames[i])))
+        _assert_same(got[i], wants[i])
     dyn = make_multistream_pipeline(tdet, tmodel, dynamic_gallery=True,
                                     device="cpu", **KW)
     for dtype, atol in ((torch.float32, 1e-6), (torch.bfloat16, 1e-2)):

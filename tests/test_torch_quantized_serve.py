@@ -13,7 +13,9 @@ index equal wherever JAX's best similarity leads the next by more than
 twice the distance between the two embeddings (a unit gallery row moves a
 similarity by at most that distance, so only such a lead decides the
 argmax on both sides; random EFMNet342 embeddings lie close together, and
-the int8 noise reorders near-ties).
+the int8 noise reorders near-ties). Each port run's cascade is first held
+to the JAX runs' on the same frames (``_torch_ties.assert_cascade_margins``):
+no detection decision sits within rounding.
 """
 
 import jax.numpy as jnp
@@ -41,6 +43,7 @@ from improving_face_recognition_performance_using_triplet_loss_tpu_torch.serve.c
     from_jax_params,
 )
 
+from _torch_ties import assert_cascade_margins, record_cascade_nms
 from _torch_weights import flax_params, mtcnn_params
 
 COS_JAX = 0.9995
@@ -98,36 +101,53 @@ KW = dict(frame_h=64, frame_w=64, embed_size=32,
           thresholds=(0.05, 0.05, 0.05), sim_threshold=-1.0)
 
 
-def test_int8_embed_pipelines_match_jax(serving):
+def test_int8_embed_pipelines_match_jax(serving, monkeypatch):
     """``int8_embed=True``: the single-frame and multistream pipelines
     (one scale a frame: the JAX pipeline embeds each frame's face alone)
     and the multiface one (a frame's four crops, empty slots included),
     against the JAX pipelines frame by frame."""
+    port_nms, jax_nms = record_cascade_nms(monkeypatch)
+    cascade_th = [0.05] * 4
+
+    def margins(jax_calls, n):
+        assert_cascade_margins(port_nms[-4:], jax_calls, n, cascade_th)
+
     jdet, model, params, tdet, tmodel = serving
     frames = (np.random.default_rng(5).random((3, 64, 64, 3))
               * 255).astype(np.float32)
     gallery = np.random.default_rng(5).normal(size=(5, 342))
     jfn = jpipe.make_recognition_pipeline(jdet, model, {"params": params},
                                           gallery, int8_embed=True, **KW)
-    ms = tpipe.make_multistream_pipeline(tdet, tmodel, gallery,
-                                         int8_embed=True, device="cpu", **KW)(
-        frames)
-    single = tpipe.make_recognition_pipeline(tdet, tmodel, gallery,
-                                             int8_embed=True, device="cpu",
-                                             **KW)
     jmf = jpipe.make_multiface_pipeline(jdet, model, {"params": params},
                                         gallery, max_faces=4,
                                         int8_embed=True, **KW)
+    wants = [{k: np.asarray(v) for k, v in jfn(jnp.asarray(f)).items()}
+             for f in frames]
+    jax_single = list(jax_nms)
+    jax_nms.clear()
+    wmfs = [{k: np.asarray(v) for k, v in jmf(jnp.asarray(f)).items()}
+            for f in frames]
+    jax_multi = list(jax_nms)
+    ms = tpipe.make_multistream_pipeline(tdet, tmodel, gallery,
+                                         int8_embed=True, device="cpu", **KW)(
+        frames)
+    margins(jax_single, 3)
+    single = tpipe.make_recognition_pipeline(tdet, tmodel, gallery,
+                                             int8_embed=True, device="cpu",
+                                             **KW)
+    singles = []
+    for i in range(3):
+        singles.append({k: v.numpy() for k, v in single(frames[i]).items()})
+        margins(jax_single[4 * i:4 * i + 4], 1)
     mf = tpipe.make_multistream_pipeline(tdet, tmodel, gallery, max_faces=4,
                                          int8_embed=True, device="cpu",
                                          **KW)(frames)
+    margins(jax_multi, 3)
     decided = 0
     for i in range(3):
-        want = {k: np.asarray(v) for k, v in jfn(jnp.asarray(frames[i]))
-                .items()}
+        want = wants[i]
         assert want["found"]
-        for got in ({k: v[i].numpy() for k, v in ms.items()},
-                    {k: v.numpy() for k, v in single(frames[i]).items()}):
+        for got in ({k: v[i].numpy() for k, v in ms.items()}, singles[i]):
             for key in ("found", "cap_dropped"):
                 np.testing.assert_array_equal(got[key], want[key])
             assert _cos(got["embedding"][None],
@@ -135,8 +155,7 @@ def test_int8_embed_pipelines_match_jax(serving):
             decided += _decided_equal(got["index"], want["index"],
                                       got["embedding"], want["embedding"],
                                       gallery)
-        wmf = {k: np.asarray(v) for k, v in jmf(jnp.asarray(frames[i]))
-               .items()}
+        wmf = wmfs[i]
         gmf = {k: v[i].numpy() for k, v in mf.items()}
         for key in ("found", "cap_dropped", "topk_dropped"):
             np.testing.assert_array_equal(gmf[key], wmf[key])

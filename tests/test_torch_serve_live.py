@@ -77,6 +77,18 @@ from improving_face_recognition_performance_using_triplet_loss_tpu_torch.serve.v
     VideoProducer,
     write_test_video,
 )
+from _torch_ties import (
+    assert_cascade_margins,
+    assert_face_rank_margins,
+    assert_gallery_margins,
+    assert_host_nms_margins,
+    assert_largest_face_margins,
+    int8_margins,
+    record_cascade_nms,
+    record_host_nms,
+    rounding_ties,
+    unit_rows,
+)
 from _torch_weights import flax_params, mtcnn_params
 
 H, W, S = 64, 80, 32
@@ -126,6 +138,38 @@ def nets():
     return jdet, model, params, tdet, tmodel
 
 
+CASCADE_TH = [TH[0], TH[0], TH[1], TH[2]]   # the threshold of each NMS
+
+
+@pytest.fixture
+def nms_calls(monkeypatch):
+    """Both cascades' NMS inputs (``_torch_ties.record_cascade_nms``): the
+    JAX pipelines a test builds and traces report them."""
+    return record_cascade_nms(monkeypatch)
+
+
+def _assert_face_margins(nms_calls, jax_calls, frames, got, want, rows_n,
+                         rows=None):
+    """The margins of a multiface comparison: the port's last cascade run
+    against ``jax_calls`` (the JAX runs of the same ``frames`` frames;
+    ``_torch_ties.assert_cascade_margins``, which also keeps apart the
+    final scores that pick the ``max_faces``), then the gallery match of
+    each found face. An f32 gallery (``rows_n``, the stored rows, the
+    first ``rows`` of them valid): the best row leads the next by more
+    than the two sides' similarities differ. An int8 gallery: both sides
+    narrow the embeddings to the same int8 codes
+    (``_torch_ties.int8_margins``), so their integer products are equal."""
+    port = nms_calls[0]
+    assert_cascade_margins(port[-len(CASCADE_TH):], jax_calls, frames,
+                           CASCADE_TH)
+    found = np.concatenate([np.asarray(x["found"]).reshape(-1)
+                            for x in got])
+    emb, wemb = (np.stack([np.asarray(x["embeddings"], np.float64)
+                           for x in side]).reshape(found.size, -1)[found]
+                 for side in (got, want))
+    assert_gallery_margins(emb, wemb, rows_n, rows)
+
+
 def _same_faces(got, want):
     found = np.asarray(want["found"])
     for key in ("found", "indices", "cap_dropped", "topk_dropped"):
@@ -140,17 +184,22 @@ def _same_faces(got, want):
 
 
 @pytest.mark.parametrize("max_faces", [1, 4])
-def test_multiface_pipeline_matches_jax(nets, max_faces):
+def test_multiface_pipeline_matches_jax(nets, max_faces, nms_calls):
     """Baked and dynamic (f32 or int8 rows, with a ``rows`` mask), one
     frame and a batch of frames: every output of the port equals the JAX
-    single-frame multiface pipeline's."""
+    single-frame multiface pipeline's, each comparison after the margins
+    that keep rounding from deciding it (``_assert_face_margins``)."""
     jdet, model, params, tdet, tmodel = nets
     gallery = np.random.default_rng(5).normal(size=(6, 342))
+    gallery_n = gallery / np.linalg.norm(gallery, axis=1, keepdims=True)
     kw = dict(KW, max_faces=max_faces)
     jfn = jpipe.make_multiface_pipeline(jdet, model, {"params": params},
                                         gallery, **kw)
     frames = _frames(3, 3)
+    for calls in nms_calls:
+        calls.clear()
     want = [jfn(jnp.asarray(f)) for f in frames]
+    jax_calls = list(nms_calls[1])
     assert all(bool(w["found"].any()) for w in want)
     if max_faces > 1:
         assert int(want[0]["found"].sum()) > 1
@@ -159,11 +208,17 @@ def test_multiface_pipeline_matches_jax(nets, max_faces):
     got = {k: v.numpy() for k, v in tfn(frames[0]).items()}
     assert got["boxes"].shape == (max_faces, 4)
     assert got["embeddings"].shape == (max_faces, 342)
+    _assert_face_margins(nms_calls, jax_calls[:len(CASCADE_TH)], 1, [got],
+                         want[:1], gallery_n)
     _same_faces(got, want[0])
     # multi-stream x multi-face: one batch, the same per frame
     batched = tpipe.make_multistream_pipeline(
         tdet, tmodel, gallery, device="cpu", **kw)(frames)
     assert batched["boxes"].shape == (3, max_faces, 4)
+    _assert_face_margins(
+        nms_calls, jax_calls, 3,
+        [{k: v[i].numpy() for k, v in batched.items()} for i in range(3)],
+        want, gallery_n)
     for i in range(3):
         _same_faces({k: v[i].numpy() for k, v in batched.items()}, want[i])
     # the dynamic gallery (f32 rows with one face, int8 with four) equals
@@ -177,9 +232,12 @@ def test_multiface_pipeline_matches_jax(nets, max_faces):
     dg = DeviceGallery(342, capacity=8, initial=gallery, dtype=tdt,
                        device="cpu")
     for rows in (6, 4):
+        nms_calls[1].clear()
         w = jdyn(jnp.asarray(frames[1]), jpipe.normalize_gallery(gallery, jdt),
                  jnp.int32(rows))
         g = tdyn(frames[1], dg.gallery_n, torch.tensor(rows, dtype=torch.int32))
+        _assert_face_margins(nms_calls, nms_calls[1], 1, [g], [w],
+                             dg.gallery_n.numpy(), rows)
         _same_faces({k: v.numpy() for k, v in g.items()}, w)
         assert (g["indices"].numpy() < rows).all()
 
@@ -196,14 +254,70 @@ def test_multiface_limits(nets):
                               int8_embed=True, device="cpu", **KW))
 
 
-def test_detect_faces_bulk_matches_jax():
-    """The bulk detector over three resolution buckets equals the JAX one
-    (boxes and points within 1e-3, the same images without a face). The
-    nets keep their random biases and the thresholds are 0.3, as in
-    tests/test_torch_align.py: scores spread, so no near-tie reorders an
-    NMS across frameworks, and none lies within 1e-5 of a threshold."""
-    from improving_face_recognition_performance_using_triplet_loss_tpu.detect.bulk import (
-        detect_faces_bulk as j_bulk,
+def _record_nms(monkeypatch, bulk_module):
+    """Record every NMS a bulk detector runs, as ``(bucket (h, w), its
+    candidates [n, 5+])``: the bucket is the last one whose pyramid
+    scales the detector asked for."""
+    calls, bucket = [], {}
+    nms, scales = bulk_module.nms, bulk_module.pyramid_scales
+
+    def recorded_scales(h, w, *args, **kwargs):
+        bucket["hw"] = (h, w)
+        return scales(h, w, *args, **kwargs)
+
+    def recorded_nms(boxes, threshold, method="Union"):
+        calls.append((bucket["hw"], np.array(boxes)))
+        return nms(boxes, threshold, method)
+
+    monkeypatch.setattr(bulk_module, "pyramid_scales", recorded_scales)
+    monkeypatch.setattr(bulk_module, "nms", recorded_nms)
+    return calls
+
+
+def _run_jax_nets(tdet, jdet):
+    """A ``_run`` for the port's detector that runs the JAX detector's
+    nets on the same inputs, as the JAX bulk detector calls them."""
+    def run(net, x):
+        x = np.asarray(x, np.float32)
+        if net is tdet.pnet:
+            return tuple(np.asarray(o)
+                         for o in jdet._pnet(jdet.pnet_params, x))
+        if net is tdet.rnet:
+            return jdet._run_batched(jdet._rnet, jdet.rnet_params, x)
+        return jdet._run_batched(jdet._onet, jdet.onet_params, x)
+    return run
+
+
+def _same_detections(got, want):
+    assert [g is None for g in got] == [w is None for w in want]
+    for g, w in zip(got, want):
+        if w is not None:
+            assert g[0].shape == w[0].shape
+            np.testing.assert_allclose(g[0], w[0], atol=1e-3)
+            np.testing.assert_allclose(g[1], w[1], atol=1e-3)
+
+
+def test_detect_faces_bulk_matches_jax(monkeypatch):
+    """The bulk detector over three resolution buckets against the JAX
+    one. The nets keep their random biases and the thresholds are 0.3, as
+    in tests/test_torch_align.py.
+
+    On the two 64x64 images and the 48x56 one the scores spread: every
+    NMS of both sides sees the same candidates, no two with different
+    boxes within their own rounding (``_torch_ties.rounding_ties``) and no
+    final score within 1e-5 of the threshold, so the detections are held
+    to JAX's as they are (boxes and points within 1e-3, the same images
+    without a face). On the blank 48x48 frame every PNet window scores the
+    same within rounding, and the order of those ties, which rounding
+    decides, picks the boxes every NMS keeps. For that frame the port's
+    bookkeeping runs on the JAX nets' outputs (the port detector's
+    ``_run`` routed to them) and is held to JAX's at the same tolerances;
+    it is held so on the other images too."""
+    from improving_face_recognition_performance_using_triplet_loss_tpu.detect import (
+        bulk as jbulk,
+    )
+    from improving_face_recognition_performance_using_triplet_loss_tpu_torch.detect import (
+        bulk as tbulk,
     )
 
     params = [mtcnn_params(spec, seed=i) for i, spec in enumerate(
@@ -217,16 +331,39 @@ def test_detect_faces_bulk_matches_jax():
         np.zeros((48, 48, 3), np.uint8),
         (rng.random((48, 56)) * 255).astype(np.uint8)]
     th = (0.3, 0.3, 0.3)
+    tcalls = _record_nms(monkeypatch, tbulk)
+    jcalls = _record_nms(monkeypatch, jbulk)
     got = detect_faces_bulk(images, detector=tdet, thresholds=th)
-    want = j_bulk(images, detector=jdet, thresholds=th)
-    assert [g is None for g in got] == [w is None for w in want]
+    want = jbulk.detect_faces_bulk(images, detector=jdet, thresholds=th)
     assert sum(w is not None for w in want) >= 2
-    for g, w in zip(got, want):
-        if w is not None:
-            assert g[0].shape == w[0].shape
-            np.testing.assert_allclose(g[0], w[0], atol=1e-3)
-            np.testing.assert_allclose(g[1], w[1], atol=1e-3)
+
+    tied = set()
+    for hw in {im.shape[:2] for im in images}:
+        tc = [c for b, c in tcalls if b == hw]
+        jc = [c for b, c in jcalls if b == hw]
+        assert tc and jc, hw
+        if rounding_ties(tc[0][:, 4], jc[0][:, 4], tc[0][:, :4]):
+            tied.add(hw)
+            continue
+        assert len(tc) == len(jc), hw
+        for k, (t, j) in enumerate(zip(tc, jc)):
+            assert t.shape == j.shape, (hw, k)
+            np.testing.assert_allclose(t[:, :4], j[:, :4], atol=1e-3,
+                                       err_msg=f"{hw} NMS {k}")
+            ties = rounding_ties(t[:, 4], j[:, 4], t[:, :4])
+            assert not ties, (hw, k, ties[:5])
+    assert tied == {(48, 48)}
+    _same_detections(
+        [g for g, im in zip(got, images) if im.shape[:2] not in tied],
+        [w for w, im in zip(want, images) if im.shape[:2] not in tied])
+    for w, im in zip(want, images):
+        if w is not None and im.shape[:2] not in tied:
             assert np.all(np.abs(w[0][:, 4] - th[2]) > 1e-5)
+
+    monkeypatch.setattr(tdet, "_run", _run_jax_nets(tdet, jdet))
+    routed = detect_faces_bulk(images, detector=tdet, thresholds=th)
+    assert routed[2] is not None
+    _same_detections(routed, want)
 
 
 def test_recognition_service_and_video_producer(nets, tmp_path):
@@ -283,6 +420,9 @@ def test_recognition_service_and_video_producer(nets, tmp_path):
             assert svc.sm.state == "Identification"
             results.append((stored, ids))
     (t_stored, t_ids), (j_stored, j_ids) = results
+    # one identity: only the 0.3 threshold decides a name, and every
+    # similarity clears it by far more than the 1e-4 they are held to
+    assert min(s for _, s, _ in j_ids) > 0.3 + 1e-4
     assert t_stored == j_stored >= 1
     assert [(n, s) for n, _, s in t_ids] == [(n, s) for n, _, s in j_ids]
     assert all(n == "alice" for n, _, _ in t_ids)
@@ -348,8 +488,44 @@ def _printed_frames(text):
         r"frame +(\d+): (\S+) \(sim ([-+.\d]+)\)", text)}
 
 
+def _assert_camera_margins(nets, argv):
+    """The margins of the camera mode's decisions, from both demos'
+    embeddings of its synthetic faces (each identity's first four enroll,
+    frames come from all six): the representatives' selection (cosine
+    0.98) and the store's deduplication (0.99999) are decided by more than
+    the two sides' cosines differ; and every face's similarity to each
+    enrolled face of its own identity beats its similarity to any other
+    identity's by more than twice that, so whichever faces enroll, the
+    name and the 0.6 threshold are decided alike."""
+    from improving_face_recognition_performance_using_triplet_loss_tpu_torch.data.synthetic import (
+        synthetic_faces,
+    )
+
+    _, model, params, _, tmodel = nets
+    targs = tdemo.parse_args(argv + ["--device", "cpu"])
+    jargs = jdemo.build_parser().parse_args(argv)
+    imgs, labels = synthetic_faces(num_ids=targs.identities, per_id=6,
+                                   size=S, seed=targs.seed)
+    cos = [unit_rows(e) @ unit_rows(e).T for e in (
+        tdemo._make_embed_fn(targs, tmodel, torch.device("cpu"))(imgs),
+        jdemo._make_embed_fn(jargs, model, {"params": params})(imgs))]
+    err = np.abs(cos[0] - cos[1])
+    enrolled = np.concatenate([np.flatnonzero(labels == i)[:4]
+                               for i in range(targs.identities)])
+    pairs = np.ix_(enrolled, enrolled)
+    off = ~np.eye(len(enrolled), dtype=bool)
+    for th in (0.98, 0.99999):
+        assert (np.abs(cos[0][pairs] - th) > err[pairs])[off].all(), th
+    sims, owners = cos[0][:, enrolled], labels[enrolled]
+    for s, who in zip(sims, labels):
+        assert s[owners == who].min() - s[owners != who].max() \
+            > 2 * err.max()
+    assert sims.min() > targs.sim_threshold + err.max()
+
+
 def test_serve_demo_camera_mode_matches_jax(same_nets, tmp_path, capsys):
     argv = ["--image-size", str(S), "--identities", "3", "--frames", "10"]
+    _assert_camera_margins(same_nets, argv)
     tdemo.main(argv + ["--store", str(tmp_path / "t.fjdb"), "--device",
                        "cpu"])
     got = capsys.readouterr().out
@@ -379,6 +555,8 @@ def test_serve_demo_video_mode_matches_jax(same_nets, tmp_path):
                       tmp_path)
     _common_frames(got, want, 1e-4)
     assert all(n == "alice" for _, n, _ in got)
+    # one identity: only the threshold decides a name, by far
+    assert min(s for _, _, s in want) > 0.3 + 1e-4
 
 
 def _scene_video(tmp_path, n, name="scene.avi", seed=42):
@@ -392,18 +570,67 @@ DETECT = ["--detect", "--frame-size", str(H), str(W), "--image-size", str(S),
           "--fps-cap", "25"]
 
 
-def test_serve_demo_video_detect_matches_jax(same_nets, tmp_path):
+def test_serve_demo_video_detect_matches_jax(same_nets, tmp_path, nms_calls,
+                                            monkeypatch):
     """--video --detect with the baked gallery built from the host
-    cascade's registration crops."""
+    cascade's registration crops. The scene's margins: its host cascade
+    (the registration crops), its device cascade and the largest-centered
+    face the fused pipeline picks."""
     path = _scene_video(tmp_path, 16)
+    frame = _assert_video_margins(same_nets, nms_calls, path, 1, False)
+    assert_largest_face_margins(*nms_calls, 1, H, W)
+    host = record_host_nms(monkeypatch)
+    jdet, _, _, tdet, _ = same_nets
+    got, want = (d.detect(frame, thresholds=TH)[0] for d in (tdet, jdet))
+    assert_host_nms_margins(*host)
+    assert_face_rank_margins(got, want, H, W)
     got, want = _both(["--video", path, *DETECT, "--register-name", "alice",
                        "--register-frames", "2"], tmp_path)
     _common_frames(got, want, 1e-4)
     assert all(n == "alice" for _, n, _ in got)
+    # one identity: only the threshold decides a name, by far
+    assert min(s for _, _, s in want) > 0.3 + 1e-4
+
+
+def _assert_video_margins(nets, nms_calls, path, max_faces, int8):
+    """The margins of a ``--video --detect`` run's decisions on the frame
+    of ``path`` (every frame is one scene), read as the demos read it:
+    both multiface pipelines over it with no detection decision within
+    rounding, and (``int8``) both sides narrowing the found faces'
+    embeddings to the same int8 codes, so that the int8 matches are
+    exact. Returns the frame."""
+    import cv2
+
+    jdet, model, params, tdet, tmodel = nets
+    cap = cv2.VideoCapture(path)
+    ok, frame = cap.read()
+    cap.release()
+    assert ok
+    frame = cv2.cvtColor(frame, cv2.COLOR_BGR2RGB).astype(np.float32)
+    frame = frame / 255.0 * 255.0
+    kw = dict(KW, thresholds=TH, max_faces=max_faces, dynamic_gallery=True)
+    rows = np.ones((1, 342), np.float32)
+    for calls in nms_calls:
+        calls.clear()
+    want = jpipe.make_multiface_pipeline(jdet, model, {"params": params},
+                                         None, **kw)(
+        jnp.asarray(frame), jpipe.normalize_gallery(rows, jnp.int8),
+        jnp.int32(1))
+    got = tpipe.make_multiface_pipeline(tdet, tmodel, device="cpu", **kw)(
+        frame, tpipe.normalize_gallery(rows, torch.int8, device="cpu"),
+        torch.tensor(1, dtype=torch.int32))
+    assert_cascade_margins(*nms_calls, 1, CASCADE_TH)
+    found = np.asarray(want["found"])
+    assert found.any()
+    if int8:
+        assert int8_margins(got["embeddings"].numpy()[found],
+                            np.asarray(want["embeddings"])[found]) > 0
+    return frame
 
 
 def test_serve_demo_person_db_multiface_int8_matches_jax(same_nets,
-                                                         tmp_path):
+                                                         tmp_path,
+                                                         nms_calls):
     """--video --detect --max-faces 4 --dynamic-gallery --person-db
     --gallery-dtype int8: enrollment writes through to a person DB (the
     port's run writes it), then each demo identifies a copy of that DB
@@ -422,6 +649,7 @@ def test_serve_demo_person_db_multiface_int8_matches_jax(same_nets,
                           "--device", "cpu", *common])
         assert res
     shutil.copy(db, tmp_path / "j.sqlite")
+    _assert_video_margins(same_nets, nms_calls, alice, 4, True)
     got = tdemo.main(["--video", alice, "--person-db", db,
                       "--register-frames", "0", "--store",
                       str(tmp_path / "t.fjdb"), "--device", "cpu", *common])
@@ -434,13 +662,34 @@ def test_serve_demo_person_db_multiface_int8_matches_jax(same_nets,
 
 
 def test_serve_demo_streams_dynamic_gallery_matches_jax(same_nets, tmp_path,
-                                                        capsys):
+                                                        capsys, nms_calls):
     """--streams with the gallery in a DeviceGallery (int8 rows): the same
-    per-stream lines as the JAX demo."""
+    per-stream lines as the JAX demo. The demo's frames, drawn from its
+    seed, go first through the port's pipeline and the JAX single-frame
+    one: no detection decision within rounding, and both sides narrow the
+    faces' embeddings to the same int8 codes, so their int8 matches are
+    exact."""
     argv = ["--streams", "2", "--frames", "2", "--frame-size", str(H),
             str(W), "--image-size", str(S), "--det-thresholds", *map(str, TH),
             "--identities", "5", "--dynamic-gallery", "--gallery-dtype",
             "int8"]
+    jdet, model, params, tdet, tmodel = same_nets
+    pipe, frames = tdemo.build_streams(tdemo.parse_args(argv + [
+        "--device", "cpu"]))
+    jfn = jpipe.make_recognition_pipeline(
+        jdet, model, {"params": params}, None, dynamic_gallery=True,
+        frame_h=H, frame_w=W, embed_size=S, thresholds=TH)
+    rows = jpipe.normalize_gallery(np.zeros((1, 342), np.float32) + 1.0)
+    for calls in nms_calls:
+        calls.clear()
+    wants = [jfn(jnp.asarray(f), rows) for f in frames.numpy()]
+    out = pipe(frames)
+    assert_cascade_margins(*nms_calls, len(wants), CASCADE_TH)
+    assert_largest_face_margins(*nms_calls, len(wants), H, W)
+    found = out["found"].numpy()
+    assert found.any()
+    assert int8_margins(out["embedding"].numpy()[found], np.stack(
+        [np.asarray(w["embedding"]) for w in wants])[found]) > 0
     res = tdemo.main(argv + ["--device", "cpu"])
     got = re.findall(r"stream +\d+: .*", capsys.readouterr().out)
     found, streams = jdemo.main(argv + ["--store", str(tmp_path / "j.fjdb")])
