@@ -47,6 +47,7 @@ import torch
 from ..models import MODEL_NAMES
 from ..train.optim import FAMILIES
 from ..train.steps import MINING_MODES
+from ..utils.profiling import span
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -161,7 +162,9 @@ class _Local:
 class MirrorBatches:
     """Host-side rand_mirror over a pair batcher (ImageRecordIter
     rand_mirror=True), a numpy copy of the JAX CLI's: each anchor and
-    positive row is mirrored with probability 1/2."""
+    positive row is mirrored with probability 1/2. Each batch's assembly
+    (the batcher's next and the mirror) is the span ``train.batch``,
+    closed before the batch is handed on."""
 
     def __init__(self, batcher, enabled: bool, seed: int):
         self.batcher = batcher
@@ -169,14 +172,20 @@ class MirrorBatches:
         self.rng = np.random.default_rng(seed + 101)
 
     def __iter__(self):
-        for anc, pos, lab in self.batcher:
-            if self.enabled:
-                flip = self.rng.random(anc.shape[0]) < 0.5
-                anc = np.where(flip[:, None, None, None], anc[:, :, ::-1, :],
-                               anc)
-                flip = self.rng.random(pos.shape[0]) < 0.5
-                pos = np.where(flip[:, None, None, None], pos[:, :, ::-1, :],
-                               pos)
+        batches = iter(self.batcher)
+        while True:
+            with span("train.batch"):
+                batch = next(batches, None)
+                if batch is None:
+                    return
+                anc, pos, lab = batch
+                if self.enabled:
+                    flip = self.rng.random(anc.shape[0]) < 0.5
+                    anc = np.where(flip[:, None, None, None],
+                                   anc[:, :, ::-1, :], anc)
+                    flip = self.rng.random(pos.shape[0]) < 0.5
+                    pos = np.where(flip[:, None, None, None],
+                                   pos[:, :, ::-1, :], pos)
             yield anc, pos, lab
 
 

@@ -20,6 +20,7 @@ import torch
 
 from ..device import resolve_device
 from ..ops.boxes import nms_mask_batched, stable_topk
+from ..utils.profiling import span
 from .device_pnet import _f32, compute_weight_mat, make_device_stage1
 
 _NEG_INF = float("-inf")
@@ -116,62 +117,72 @@ def make_device_cascade(pnet, rnet, onet, h: int, w: int, *,
 
     @torch.inference_mode()
     def cascade(frames: torch.Tensor):
-        frames = _f32(frames, dev)
-        nf = frames.shape[0]
-        cand, s1_dropped = stage1(frames)                   # [F, S1, 9]
-        valid = torch.isfinite(cand[..., 4])
-        n1 = valid.sum(-1, dtype=torch.int32)
-        regw = cand[..., 2] - cand[..., 0]
-        regh = cand[..., 3] - cand[..., 1]
-        boxes = torch.stack([cand[..., 0] + cand[..., 5] * regw,
-                             cand[..., 1] + cand[..., 6] * regh,
-                             cand[..., 2] + cand[..., 7] * regw,
-                             cand[..., 3] + cand[..., 8] * regh,
-                             cand[..., 4]], dim=-1)
-        boxes = rerec(boxes)
-        boxes = torch.cat([torch.trunc(boxes[..., :4]), boxes[..., 4:]], -1)
-        boxes = _masked(boxes, boxes[..., 4], valid)
+        with span("serve.stage1"):
+            frames = _f32(frames, dev)
+            nf = frames.shape[0]
+            cand, s1_dropped = stage1(frames)               # [F, S1, 9]
+            valid = torch.isfinite(cand[..., 4])
+            n1 = valid.sum(-1, dtype=torch.int32)
+            regw = cand[..., 2] - cand[..., 0]
+            regh = cand[..., 3] - cand[..., 1]
+            boxes = torch.stack([cand[..., 0] + cand[..., 5] * regw,
+                                 cand[..., 1] + cand[..., 6] * regh,
+                                 cand[..., 2] + cand[..., 7] * regw,
+                                 cand[..., 3] + cand[..., 8] * regh,
+                                 cand[..., 4]], dim=-1)
+            boxes = rerec(boxes)
+            boxes = torch.cat([torch.trunc(boxes[..., :4]), boxes[..., 4:]],
+                              -1)
+            boxes = _masked(boxes, boxes[..., 4], valid)
 
-        # stage 2: RNet over the top stage2_cap stage-1 candidates
-        boxes2 = _sorted_rows(boxes, stage2_cap)
-        prob, reg = rnet(_norm_crops(crop_resize_boxes(frames, boxes2, 24)))
-        score2 = prob[:, 1].reshape(nf, -1)
-        reg = reg.reshape(nf, -1, 4)
-        valid2 = (score2 > thresholds[1]) & torch.isfinite(boxes2[..., 4])
-        boxes2 = _masked(boxes2, score2, valid2)
-        mask2 = nms_mask_batched(boxes2[..., :5].contiguous(), 0.7, "Union")
-        kept = _masked(boxes2, boxes2[..., 4],
-                       mask2 & torch.isfinite(boxes2[..., 4]))
-        boxes2 = rerec(bbreg(kept, reg))
-        boxes2 = torch.cat([torch.trunc(boxes2[..., :4]), boxes2[..., 4:]],
-                           -1)
+        with span("serve.stage2"):
+            # stage 2: RNet over the top stage2_cap stage-1 candidates
+            boxes2 = _sorted_rows(boxes, stage2_cap)
+            prob, reg = rnet(_norm_crops(crop_resize_boxes(frames, boxes2,
+                                                           24)))
+            score2 = prob[:, 1].reshape(nf, -1)
+            reg = reg.reshape(nf, -1, 4)
+            valid2 = ((score2 > thresholds[1])
+                      & torch.isfinite(boxes2[..., 4]))
+            boxes2 = _masked(boxes2, score2, valid2)
+            mask2 = nms_mask_batched(boxes2[..., :5].contiguous(), 0.7,
+                                     "Union")
+            kept = _masked(boxes2, boxes2[..., 4],
+                           mask2 & torch.isfinite(boxes2[..., 4]))
+            boxes2 = rerec(bbreg(kept, reg))
+            boxes2 = torch.cat([torch.trunc(boxes2[..., :4]),
+                                boxes2[..., 4:]], -1)
 
-        # stage 3: ONet over the top out_cap stage-2 survivors
-        n2 = torch.isfinite(boxes2[..., 4]).sum(-1, dtype=torch.int32)
-        boxes3 = _sorted_rows(boxes2, out_cap)
-        prob3, reg3, lmk = onet(
-            _norm_crops(crop_resize_boxes(frames, boxes3, 48)))
-        score3 = prob3[:, 1].reshape(nf, -1)
-        reg3 = reg3.reshape(nf, -1, 4)
-        lmk = lmk.reshape(nf, -1, 10)
-        valid3 = (score3 > thresholds[2]) & torch.isfinite(boxes3[..., 4])
-        boxes3 = _masked(boxes3, score3, valid3)
-        bw = boxes3[..., 2] - boxes3[..., 0] + 1
-        bh = boxes3[..., 3] - boxes3[..., 1] + 1
-        pts = torch.cat([bw[..., None] * lmk[..., 0:5] + boxes3[..., 0:1] - 1,
-                         bh[..., None] * lmk[..., 5:10] + boxes3[..., 1:2] - 1],
-                        dim=-1)
-        boxes3 = bbreg(boxes3, reg3)
-        mask3 = nms_mask_batched(boxes3[..., :5].contiguous(), 0.7, "Min")
-        out_boxes = _masked(boxes3, boxes3[..., 4],
-                            mask3 & torch.isfinite(boxes3[..., 4]))
-        counts = torch.stack([
-            s1_dropped,
-            torch.clamp(n1 - stage2_cap, min=0),
-            torch.clamp(n2 - out_cap, min=0),
-            torch.isfinite(out_boxes[..., 4]).sum(-1, dtype=torch.int32),
-        ], dim=-1)
-        return out_boxes, pts, counts
+        with span("serve.stage3"):
+            # stage 3: ONet over the top out_cap stage-2 survivors
+            n2 = torch.isfinite(boxes2[..., 4]).sum(-1, dtype=torch.int32)
+            boxes3 = _sorted_rows(boxes2, out_cap)
+            prob3, reg3, lmk = onet(
+                _norm_crops(crop_resize_boxes(frames, boxes3, 48)))
+            score3 = prob3[:, 1].reshape(nf, -1)
+            reg3 = reg3.reshape(nf, -1, 4)
+            lmk = lmk.reshape(nf, -1, 10)
+            valid3 = ((score3 > thresholds[2])
+                      & torch.isfinite(boxes3[..., 4]))
+            boxes3 = _masked(boxes3, score3, valid3)
+            bw = boxes3[..., 2] - boxes3[..., 0] + 1
+            bh = boxes3[..., 3] - boxes3[..., 1] + 1
+            pts = torch.cat(
+                [bw[..., None] * lmk[..., 0:5] + boxes3[..., 0:1] - 1,
+                 bh[..., None] * lmk[..., 5:10] + boxes3[..., 1:2] - 1],
+                dim=-1)
+            boxes3 = bbreg(boxes3, reg3)
+            mask3 = nms_mask_batched(boxes3[..., :5].contiguous(), 0.7,
+                                     "Min")
+            out_boxes = _masked(boxes3, boxes3[..., 4],
+                                mask3 & torch.isfinite(boxes3[..., 4]))
+            counts = torch.stack([
+                s1_dropped,
+                torch.clamp(n1 - stage2_cap, min=0),
+                torch.clamp(n2 - out_cap, min=0),
+                torch.isfinite(out_boxes[..., 4]).sum(-1, dtype=torch.int32),
+            ], dim=-1)
+            return out_boxes, pts, counts
 
     return cascade
 

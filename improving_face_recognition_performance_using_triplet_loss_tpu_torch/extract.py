@@ -28,9 +28,18 @@ from .ops.quantized import Int8ConvRoute
 from .parallel.collectives import gather_rows
 from .parallel.mesh import (DATA_AXIS, axis_group, axis_size, local_block,
                             make_mesh)
+from .utils.profiling import span
 
 # XLA turns the jitted division by 255 into a product with this float32
 _INV_255 = float(np.float32(1.0) / np.float32(255.0))
+
+
+def _scaled(images: torch.Tensor) -> torch.Tensor:
+    """uint8 images as float32 in [0, 1] (``x * float32(1/255)``); others
+    as they are."""
+    if images.dtype == torch.uint8:
+        return images.float() * _INV_255
+    return images
 
 
 def make_extract_fn(model: torch.nn.Module, *, normalize: bool = True,
@@ -45,8 +54,7 @@ def make_extract_fn(model: torch.nn.Module, *, normalize: bool = True,
 
     @torch.no_grad()
     def fn(images: torch.Tensor):
-        if images.dtype == torch.uint8:
-            images = images.float() * _INV_255
+        images = _scaled(images)
         with (conv_route(route) if int8 else contextlib.nullcontext()):
             logits, feat = model(images)
         if normalize:
@@ -114,22 +122,27 @@ def extract_features(
     feats_out, preds_out = [], []
     correct = counted = 0
     for start in range(0, n, batch_size):
-        # a copy: memmap rows are read here anyway, and torch wants them
-        # writable
-        chunk = np.array(images[start:start + batch_size])
-        rows = chunk.shape[0]
-        if rows < batch_size:
-            chunk = np.concatenate(
-                [chunk, np.zeros((batch_size - rows,) + chunk.shape[1:],
-                                 chunk.dtype)], 0)
-        logits, feat = fn(torch.from_numpy(chunk).to(device))
-        feats_out.append(feat[:rows].cpu().numpy())
-        pred = torch.argmax(logits[:rows], dim=-1).cpu().numpy()
-        preds_out.append(pred)
-        if labels is not None:
-            lab = np.asarray(labels[start:start + batch_size])
-            correct += int((pred == lab).sum())
-            counted += lab.shape[0]
+        with span("extract.slice"):
+            # a copy: memmap rows are read here anyway, and torch wants
+            # them writable
+            chunk = np.array(images[start:start + batch_size])
+            rows = chunk.shape[0]
+            if rows < batch_size:
+                chunk = np.concatenate(
+                    [chunk, np.zeros((batch_size - rows,) + chunk.shape[1:],
+                                     chunk.dtype)], 0)
+        with span("extract.upload"):
+            batch = _scaled(torch.from_numpy(chunk).to(device))
+        with span("extract.forward"):
+            logits, feat = fn(batch)
+        with span("extract.readback"):
+            feats_out.append(feat[:rows].cpu().numpy())
+            pred = torch.argmax(logits[:rows], dim=-1).cpu().numpy()
+            preds_out.append(pred)
+            if labels is not None:
+                lab = np.asarray(labels[start:start + batch_size])
+                correct += int((pred == lab).sum())
+                counted += lab.shape[0]
     features = np.concatenate(feats_out, 0)
     acc = correct / counted if counted else float("nan")
     return (features, None if labels is None else np.asarray(labels), acc,

@@ -30,6 +30,7 @@ from ..ops.distances import (gallery_sims, l2_normalize, l2_normalize_np,
 from ..ops.quantized import Int8ConvRoute
 from ..parallel.collectives import gather_rows, global_argmax
 from ..parallel.mesh import axis_group, axis_index, axis_size, local_block
+from ..utils.profiling import count, span
 # the device cascade's output capacity: the most faces a frame can yield
 MAX_FACES = 64
 
@@ -45,6 +46,17 @@ def _match_gallery(sims: torch.Tensor, rows=None):
     idx = torch.argmax(sims, dim=-1)         # the first maximum, as in JAX
     sim = torch.amax(sims, dim=-1)
     return idx, sim, sim > float("-inf")
+
+
+def _upload(frames, dev: torch.device) -> torch.Tensor:
+    """The frames as float32 on ``dev``. Frames in host memory (a numpy
+    array or a CPU tensor) are counted (``serve.upload_bytes``) at the
+    bytes of the float32 frames made from them: a blocking copy converts
+    on the host, so on a card that is what crosses to it."""
+    out = torch.as_tensor(frames, dtype=torch.float32, device=dev)
+    if not isinstance(frames, torch.Tensor) or frames.device.type == "cpu":
+        count("serve.upload_bytes", out.nbytes)
+    return out
 
 
 def _embed_fn(embed_model, int8_embed: bool):
@@ -80,29 +92,33 @@ def _make_detect_embed(detector, embed_model, *, frame_h, frame_w,
 
     def detect_embed(frames: torch.Tensor):
         boxes, _, counts = cascade(frames)                 # [F, cap, 5]
-        valid = torch.isfinite(boxes[..., 4])
-        found = valid.any(-1)
-        # largest-centered selection (area - 2 * center offset^2)
-        area = ((boxes[..., 2] - boxes[..., 0])
-                * (boxes[..., 3] - boxes[..., 1]))
-        cx = (boxes[..., 0] + boxes[..., 2]) * 0.5 - frame_w / 2.0
-        cy = (boxes[..., 1] + boxes[..., 3]) * 0.5 - frame_h / 2.0
-        rank = torch.where(valid, area - 2.0 * (cx * cx + cy * cy),
-                           float("-inf"))
-        best = torch.argmax(rank, dim=-1)
-        sel = torch.gather(boxes, 1, best[:, None, None].expand(-1, 1, 5))[:, 0]
-        # margin pad + clip (crop_face semantics)
-        box = torch.stack([
-            torch.clamp(sel[:, 0] - half, min=0.0),
-            torch.clamp(sel[:, 1] - half, min=0.0),
-            torch.clamp(sel[:, 2] + half, max=float(frame_w)),
-            torch.clamp(sel[:, 3] + half, max=float(frame_h)),
-        ], dim=-1)
-        crop = crop_resize_boxes(frames, box[:, None], embed_size)[:, 0]
-        gray = crop.mean(dim=-1, keepdim=True) / 255.0
-        emb = l2_normalize(embed(gray, frames.shape[0]))
-        cap_dropped = counts[:, 0] + counts[:, 1] + counts[:, 2]
-        return found, box, sel[:, 4], emb, cap_dropped
+        with span("serve.crop"):
+            valid = torch.isfinite(boxes[..., 4])
+            found = valid.any(-1)
+            # largest-centered selection (area - 2 * center offset^2)
+            area = ((boxes[..., 2] - boxes[..., 0])
+                    * (boxes[..., 3] - boxes[..., 1]))
+            cx = (boxes[..., 0] + boxes[..., 2]) * 0.5 - frame_w / 2.0
+            cy = (boxes[..., 1] + boxes[..., 3]) * 0.5 - frame_h / 2.0
+            rank = torch.where(valid, area - 2.0 * (cx * cx + cy * cy),
+                               float("-inf"))
+            best = torch.argmax(rank, dim=-1)
+            sel = torch.gather(boxes, 1,
+                               best[:, None, None].expand(-1, 1, 5))[:, 0]
+            # margin pad + clip (crop_face semantics)
+            box = torch.stack([
+                torch.clamp(sel[:, 0] - half, min=0.0),
+                torch.clamp(sel[:, 1] - half, min=0.0),
+                torch.clamp(sel[:, 2] + half, max=float(frame_w)),
+                torch.clamp(sel[:, 3] + half, max=float(frame_h)),
+            ], dim=-1)
+            crop = crop_resize_boxes(frames, box[:, None], embed_size)[:, 0]
+            gray = crop.mean(dim=-1, keepdim=True) / 255.0
+            score = sel[:, 4]
+            cap_dropped = counts[:, 0] + counts[:, 1] + counts[:, 2]
+        with span("serve.embed"):
+            emb = l2_normalize(embed(gray, frames.shape[0]))
+        return found, box, score, emb, cap_dropped
 
     return detect_embed
 
@@ -148,21 +164,32 @@ def make_multistream_pipeline(detector, embed_model, gallery=None, *,
 
     @torch.inference_mode()
     def pipeline(frames, gallery_n=baked, rows=None):
-        frames = torch.as_tensor(frames, dtype=torch.float32, device=dev)
+        with span("serve.upload"):
+            frames = _upload(frames, dev)
         found, box, score, emb, cap_dropped = detect_embed(frames)
-        idx, sim, real = _match_gallery(gallery_sims(emb, gallery_n), rows)
-        matched = found & real & (sim >= sim_threshold)
-        return {
-            "found": found,
-            "box": box,
-            "score": score,
-            "index": torch.where(matched, idx, -1).to(torch.int32),
-            "similarity": torch.where(found & real, sim, -2.0),
-            "embedding": emb,
-            "cap_dropped": cap_dropped,
-        }
+        with span("serve.match"):
+            idx, sim, real = _match_gallery(gallery_sims(emb, gallery_n),
+                                            rows)
+            return _result(found, box, score, idx, sim, real, emb,
+                           cap_dropped, sim_threshold)
 
     return pipeline
+
+
+def _result(found, box, score, idx, sim, real, emb, cap_dropped,
+            sim_threshold: float) -> dict:
+    """The multi-stream pipelines' dict from the best face's detection,
+    embedding and gallery match."""
+    matched = found & real & (sim >= sim_threshold)
+    return {
+        "found": found,
+        "box": box,
+        "score": score,
+        "index": torch.where(matched, idx, -1).to(torch.int32),
+        "similarity": torch.where(found & real, sim, -2.0),
+        "embedding": emb,
+        "cap_dropped": cap_dropped,
+    }
 
 
 def _single(multi):
@@ -229,42 +256,47 @@ def _make_multiface_batched(detector, embed_model, gallery=None, *,
 
     @torch.inference_mode()
     def pipeline(frames, gallery_n=baked, rows=None):
-        frames = torch.as_tensor(frames, dtype=torch.float32, device=dev)
+        with span("serve.upload"):
+            frames = _upload(frames, dev)
         nf = frames.shape[0]
         boxes, _, counts = cascade(frames)                 # [F, cap, 5]
-        valid = torch.isfinite(boxes[..., 4])
-        score = torch.where(valid, boxes[..., 4], float("-inf"))
-        k = min(max_faces, boxes.shape[1])
-        top_s, top_i = stable_topk(score, k)               # [F, K]
-        found = torch.isfinite(top_s)
-        sel = torch.gather(boxes[..., :4], 1,
-                           top_i[..., None].expand(nf, k, 4))
-        # margin pad + clip per face (crop_face semantics); rows of invalid
-        # faces may be non-finite and are masked by `found`
-        bxs = torch.stack([
-            torch.clamp(sel[..., 0] - half, min=0.0),
-            torch.clamp(sel[..., 1] - half, min=0.0),
-            torch.clamp(sel[..., 2] + half, max=float(frame_w)),
-            torch.clamp(sel[..., 3] + half, max=float(frame_h)),
-        ], dim=-1)
-        safe = torch.where(torch.isfinite(bxs), bxs, 0.0)
-        crops = crop_resize_boxes(frames, safe, embed_size)  # [F, K, S, S, 3]
-        gray = crops.mean(dim=-1, keepdim=True) / 255.0
-        feats = embed(gray.reshape(nf * k, embed_size, embed_size, 1), nf)
-        embs = l2_normalize(feats).reshape(nf, k, -1)       # [F, K, D]
-        idx, sim, real = _match_gallery(gallery_sims(embs, gallery_n), rows)
-        matched = found & real & (sim >= sim_threshold)
-        return {
-            "found": found,
-            "boxes": bxs,
-            "scores": top_s,
-            "indices": torch.where(matched, idx, -1).to(torch.int32),
-            "similarities": torch.where(found & real, sim, -2.0),
-            "embeddings": embs,
-            "cap_dropped": counts[:, 0] + counts[:, 1] + counts[:, 2],
-            "topk_dropped": torch.clamp(
-                valid.sum(-1, dtype=torch.int32) - k, min=0),
-        }
+        with span("serve.crop"):
+            valid = torch.isfinite(boxes[..., 4])
+            score = torch.where(valid, boxes[..., 4], float("-inf"))
+            k = min(max_faces, boxes.shape[1])
+            top_s, top_i = stable_topk(score, k)           # [F, K]
+            found = torch.isfinite(top_s)
+            sel = torch.gather(boxes[..., :4], 1,
+                               top_i[..., None].expand(nf, k, 4))
+            # margin pad + clip per face (crop_face semantics); rows of
+            # invalid faces may be non-finite and are masked by `found`
+            bxs = torch.stack([
+                torch.clamp(sel[..., 0] - half, min=0.0),
+                torch.clamp(sel[..., 1] - half, min=0.0),
+                torch.clamp(sel[..., 2] + half, max=float(frame_w)),
+                torch.clamp(sel[..., 3] + half, max=float(frame_h)),
+            ], dim=-1)
+            safe = torch.where(torch.isfinite(bxs), bxs, 0.0)
+            crops = crop_resize_boxes(frames, safe, embed_size)
+            gray = crops.mean(dim=-1, keepdim=True) / 255.0  # [F, K, S, S, 1]
+        with span("serve.embed"):
+            feats = embed(gray.reshape(nf * k, embed_size, embed_size, 1), nf)
+            embs = l2_normalize(feats).reshape(nf, k, -1)   # [F, K, D]
+        with span("serve.match"):
+            idx, sim, real = _match_gallery(gallery_sims(embs, gallery_n),
+                                            rows)
+            matched = found & real & (sim >= sim_threshold)
+            return {
+                "found": found,
+                "boxes": bxs,
+                "scores": top_s,
+                "indices": torch.where(matched, idx, -1).to(torch.int32),
+                "similarities": torch.where(found & real, sim, -2.0),
+                "embeddings": embs,
+                "cap_dropped": counts[:, 0] + counts[:, 1] + counts[:, 2],
+                "topk_dropped": torch.clamp(
+                    valid.sum(-1, dtype=torch.int32) - k, min=0),
+            }
 
     return pipeline
 
@@ -343,26 +375,19 @@ def make_gallery_sharded_multistream_pipeline(
             raise ValueError(
                 f"stream count ({n}) must be a multiple of the mesh size "
                 f"({ndev}) — frames shard over the whole mesh")
-        frames = torch.as_tensor(local_block(frames, mesh, None),
-                                 dtype=torch.float32, device=dev)
-        found, box, score, emb, cap_dropped = (
-            gather_rows(t, world) for t in detect_embed(frames))
-        row0 = gindex * gal_n.shape[0]
-        sims = gallery_sims(emb, gal_n)                   # [N, block]
-        idx, sim, _ = _match_gallery(
-            sims, torch.as_tensor(rows, device=sims.device) - row0)
-        idx, sim = global_argmax(idx, sim, row0, ggroup)
-        real = sim > float("-inf")
-        matched = found & real & (sim >= sim_threshold)
-        return {
-            "found": found,
-            "box": box,
-            "score": score,
-            "index": torch.where(matched, idx, -1).to(torch.int32),
-            "similarity": torch.where(found & real, sim, -2.0),
-            "embedding": emb,
-            "cap_dropped": cap_dropped,
-        }
+        with span("serve.upload"):
+            frames = _upload(local_block(frames, mesh, None), dev)
+        local = detect_embed(frames)
+        with span("serve.match"):
+            found, box, score, emb, cap_dropped = (
+                gather_rows(t, world) for t in local)
+            row0 = gindex * gal_n.shape[0]
+            sims = gallery_sims(emb, gal_n)               # [N, block]
+            idx, sim, _ = _match_gallery(
+                sims, torch.as_tensor(rows, device=sims.device) - row0)
+            idx, sim = global_argmax(idx, sim, row0, ggroup)
+            return _result(found, box, score, idx, sim, sim > float("-inf"),
+                           emb, cap_dropped, sim_threshold)
 
     return run
 

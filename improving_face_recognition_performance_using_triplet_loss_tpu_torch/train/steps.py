@@ -59,6 +59,7 @@ from ..parallel.collectives import (all_gather_rows, copy_to_model_group,
                                     gather_rows, pmean, reduce_tensors_)
 from ..parallel.mesh import (DATA_AXIS, MODEL_AXIS, axis_group, bind_mesh,
                              bound_axis)
+from ..utils.profiling import span
 from .state import TrainState, step_generator
 
 Metrics = dict[str, torch.Tensor]
@@ -401,41 +402,46 @@ def make_backbone_train_step(
 
     def step(state: TrainState, anchor, positive, labels):
         data, classes = bound_axis(axis_name), bound_axis(class_axis_name)
-        gen = step_generator(state, _fold(data))
-        images, labels = _images(state, anchor, positive, labels)
-        if mirror_augment or crop_size is not None:
-            images = augment_batch(gen, images, mirror=mirror_augment,
-                                   crop_size=crop_size)
+        with span("train.upload"):
+            gen = step_generator(state, _fold(data))
+            images, labels = _images(state, anchor, positive, labels)
+            if mirror_augment or crop_size is not None:
+                images = augment_batch(gen, images, mirror=mirror_augment,
+                                       crop_size=crop_size)
         model = state.model
-        model.train()
-        _set_dropout_generator(model, gen)
-        try:
-            with _autocast(images.device, compute_dtype), \
-                    _fc2_input(model, classes):
-                logits, feat = model.classify(
-                    _embed_fn(model, remat_policy, bwd_im2col)(images))
-        finally:
-            _set_dropout_generator(model, None)
-        # under DP every candidate pool is the gathered batch
-        num_cand = (labels.shape[0] if mine_anchor_half_only and data is None
-                    else None)
-        total, metrics, anc = _backbone_losses(
-            logits, feat, labels, gen, mining_mode, margin, alpha, num_cand,
-            data, classes)
-        new_centers = state.aux
-        if center_weight > 0.0:
-            c_loss, new_centers = center_loss(anc, labels, state.aux,
-                                              alfa=center_alfa)
-            total = total + center_weight * c_loss
-            metrics["loss"] = total.detach()
-        state.optimizer.zero_grad(set_to_none=True)
-        total.backward()
-        _reduce_grads(model, data)
-        if center_weight > 0.0 and data is not None:
-            new_centers = pmean(new_centers, data.group)
-        state.apply_update()
-        state.aux = new_centers
-        return state, _pmean_metrics(metrics, data)
+        with span("train.forward"):
+            model.train()
+            _set_dropout_generator(model, gen)
+            try:
+                with _autocast(images.device, compute_dtype), \
+                        _fc2_input(model, classes):
+                    logits, feat = model.classify(
+                        _embed_fn(model, remat_policy, bwd_im2col)(images))
+            finally:
+                _set_dropout_generator(model, None)
+        with span("train.loss"):
+            # under DP every candidate pool is the gathered batch
+            num_cand = (labels.shape[0]
+                        if mine_anchor_half_only and data is None else None)
+            total, metrics, anc = _backbone_losses(
+                logits, feat, labels, gen, mining_mode, margin, alpha,
+                num_cand, data, classes)
+            new_centers = state.aux
+            if center_weight > 0.0:
+                c_loss, new_centers = center_loss(anc, labels, state.aux,
+                                                  alfa=center_alfa)
+                total = total + center_weight * c_loss
+                metrics["loss"] = total.detach()
+        with span("train.backward"):
+            state.optimizer.zero_grad(set_to_none=True)
+            total.backward()
+            _reduce_grads(model, data)
+            if center_weight > 0.0 and data is not None:
+                new_centers = pmean(new_centers, data.group)
+        with span("train.optimizer"):
+            state.apply_update()
+            state.aux = new_centers
+            return state, _pmean_metrics(metrics, data)
 
     return step
 

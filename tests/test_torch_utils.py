@@ -1,11 +1,10 @@
 """The port's utilities against the JAX package's, on the CPU: the
-embedding-projector TSVs (byte-equal), ``MetricsWriter`` (the same JSONL),
-``StepTimer``, ``compiled_flops`` (2*M*N*K for a matmul in both: FLOPs
-counted by ``FlopCounterMode`` here, XLA's cost analysis there), ``trace``
-(a Chrome trace file) and ``enable_compilation_cache`` (a no-op)."""
+embedding-projector TSVs (byte-equal), ``compiled_flops`` (2*M*N*K for a
+matmul in both: FLOPs counted by ``FlopCounterMode`` here, XLA's cost
+analysis there), ``trace`` (a Chrome trace file) and
+``enable_compilation_cache`` (a no-op)."""
 
 import json
-import logging
 import os
 
 import jax.numpy as jnp
@@ -49,28 +48,6 @@ def test_projector_tsvs_byte_equal(tmp_path, names):
     je, jlab = jproj.load_projector(td)
     np.testing.assert_array_equal(e, je)
     assert list(map(str, lab)) == list(map(str, jlab))
-
-
-def test_metrics_writer_same_jsonl(tmp_path):
-    rows = [dict(step=1, loss=0.5, rate=1234.5), dict(epoch=2, acc=0.25)]
-    for mod, name in ((jprof, "j"), (tprof, "t")):
-        w = mod.MetricsWriter(str(tmp_path / name / "m.jsonl"))
-        assert w.read_all() == []
-        for r in rows:
-            w.write(**r)
-        assert w.read_all() == rows
-    assert (tmp_path / "t" / "m.jsonl").read_bytes() == \
-        (tmp_path / "j" / "m.jsonl").read_bytes()
-
-
-def test_step_timer_reports_every_n(caplog):
-    t = tprof.StepTimer(batch_size=8, report_every=3,
-                        log=logging.getLogger("t"))
-    with caplog.at_level(logging.INFO):
-        out = [t.step() for _ in range(6)]
-    assert out[0] is out[1] is out[3] is out[4] is None
-    assert out[2] > 0 and out[5] > 0 and t.last_rate == out[5]
-    assert sum("samples/sec" in r.message for r in caplog.records) == 2
 
 
 @pytest.mark.parametrize("m,k,n", [(16, 32, 8), (64, 128, 96)])
