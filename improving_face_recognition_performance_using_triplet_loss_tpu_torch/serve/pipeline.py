@@ -18,6 +18,8 @@ pipelines split the frames over a mesh's ranks
 
 from __future__ import annotations
 
+import threading
+
 import numpy as np
 import torch
 
@@ -48,15 +50,67 @@ def _match_gallery(sims: torch.Tensor, rows=None):
     return idx, sim, sim > float("-inf")
 
 
-def _upload(frames, dev: torch.device) -> torch.Tensor:
-    """The frames as float32 on ``dev``. Frames in host memory (a numpy
-    array or a CPU tensor) are counted (``serve.upload_bytes``) at the
-    bytes of the float32 frames made from them: a blocking copy converts
-    on the host, so on a card that is what crosses to it."""
-    out = torch.as_tensor(frames, dtype=torch.float32, device=dev)
-    if not isinstance(frames, torch.Tensor) or frames.device.type == "cpu":
-        count("serve.upload_bytes", out.nbytes)
-    return out
+def _host_uint8(frames) -> bool:
+    """Whether host frames (a numpy array or a CPU tensor) are uint8."""
+    if isinstance(frames, torch.Tensor):
+        return frames.dtype == torch.uint8
+    return isinstance(frames, np.ndarray) and frames.dtype == np.uint8
+
+
+class _Uploader:
+    """A pipeline's frame upload: fn(frames) -> the frames as float32 on
+    ``dev``.
+
+    Host uint8 frames (a numpy array or a CPU tensor) cross in uint8 and
+    are widened on ``dev`` (exact, so the float32 frames are those a
+    host conversion gives). On a card they cross from a page-locked
+    staging buffer, one a frame shape, kept with a device buffer of that
+    shape: the frames are copied into it on the host, the copy to the
+    card is enqueued without blocking and the widening after it, on the
+    current stream, so the host goes on to the next stage while the copy
+    runs. An event recorded after the widening marks the end of both
+    buffers' use; the next call of that shape waits on it before it
+    overwrites them. The caller's array is free once the call returns.
+    Other host frames cross as float32; frames on a device are not
+    copied. ``serve.upload_bytes`` counts the bytes of host frames in the
+    dtype they cross in."""
+
+    def __init__(self, dev: torch.device):
+        self.dev = dev
+        self.staged: dict = {}   # shape -> (host buffer, device buffer, event)
+        self.lock = threading.Lock()
+
+    def __call__(self, frames) -> torch.Tensor:
+        if isinstance(frames, torch.Tensor) and frames.device.type != "cpu":
+            return torch.as_tensor(frames, dtype=torch.float32,
+                                   device=self.dev)
+        uint8 = _host_uint8(frames)
+        if uint8 and self.dev.type == "cuda":
+            out = self._staged(frames)
+        else:
+            out = torch.as_tensor(frames, dtype=torch.float32,
+                                  device=self.dev)
+        count("serve.upload_bytes", frames.nbytes if uint8 else out.nbytes)
+        return out
+
+    def _staged(self, frames) -> torch.Tensor:
+        shape = tuple(frames.shape)
+        with self.lock:
+            if shape not in self.staged:
+                self.staged[shape] = (
+                    torch.empty(shape, dtype=torch.uint8, pin_memory=True),
+                    torch.empty(shape, dtype=torch.uint8, device=self.dev),
+                    torch.cuda.Event())
+            host, dev_buf, done = self.staged[shape]
+            done.synchronize()
+            if isinstance(frames, np.ndarray):
+                np.copyto(host.numpy(), frames)
+            else:
+                host.copy_(frames)
+            dev_buf.copy_(host, non_blocking=True)
+            out = dev_buf.to(torch.float32)
+            done.record(torch.cuda.current_stream(self.dev))
+        return out
 
 
 def _embed_fn(embed_model, int8_embed: bool):
@@ -159,13 +213,14 @@ def make_multistream_pipeline(detector, embed_model, gallery=None, *,
         detector, embed_model, frame_h=frame_h, frame_w=frame_w,
         embed_size=embed_size, margin=margin, minsize=minsize,
         thresholds=thresholds, device=dev, int8_embed=int8_embed)
+    upload = _Uploader(dev)
     baked = None if dynamic_gallery else l2_normalize(
         torch.as_tensor(np.asarray(gallery, np.float32), device=dev))
 
     @torch.inference_mode()
     def pipeline(frames, gallery_n=baked, rows=None):
         with span("serve.upload"):
-            frames = _upload(frames, dev)
+            frames = upload(frames)
         found, box, score, emb, cap_dropped = detect_embed(frames)
         with span("serve.match"):
             idx, sim, real = _match_gallery(gallery_sims(emb, gallery_n),
@@ -197,7 +252,8 @@ def _single(multi):
     without the leading axis."""
 
     def pipeline(frame, *args):
-        frame = torch.as_tensor(frame, dtype=torch.float32)
+        if not isinstance(frame, torch.Tensor):
+            frame = np.asarray(frame)
         out = multi(frame[None], *args)
         return {k: v[0] for k, v in out.items()}
 
@@ -250,6 +306,7 @@ def _make_multiface_batched(detector, embed_model, gallery=None, *,
     cascade = make_device_cascade(
         detector.pnet, detector.rnet, detector.onet, frame_h, frame_w,
         minsize=minsize, thresholds=thresholds, device=dev)
+    upload = _Uploader(dev)
     baked = None if dynamic_gallery else l2_normalize(
         torch.as_tensor(np.asarray(gallery, np.float32), device=dev))
     half = margin / 2
@@ -257,7 +314,7 @@ def _make_multiface_batched(detector, embed_model, gallery=None, *,
     @torch.inference_mode()
     def pipeline(frames, gallery_n=baked, rows=None):
         with span("serve.upload"):
-            frames = _upload(frames, dev)
+            frames = upload(frames)
         nf = frames.shape[0]
         boxes, _, counts = cascade(frames)                 # [F, cap, 5]
         with span("serve.crop"):
@@ -367,6 +424,7 @@ def make_gallery_sharded_multistream_pipeline(
     world, ndev = axis_group(mesh, None), axis_size(mesh, None)
     ggroup = axis_group(mesh, gallery_axis)
     gindex = axis_index(mesh, gallery_axis)
+    upload = _Uploader(dev)
 
     @torch.inference_mode()
     def run(frames, gal_n, rows):
@@ -376,7 +434,7 @@ def make_gallery_sharded_multistream_pipeline(
                 f"stream count ({n}) must be a multiple of the mesh size "
                 f"({ndev}) — frames shard over the whole mesh")
         with span("serve.upload"):
-            frames = _upload(local_block(frames, mesh, None), dev)
+            frames = upload(local_block(frames, mesh, None))
         local = detect_embed(frames)
         with span("serve.match"):
             found, box, score, emb, cap_dropped = (

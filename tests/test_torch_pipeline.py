@@ -57,7 +57,11 @@ from improving_face_recognition_performance_using_triplet_loss_tpu_torch.detect.
 from improving_face_recognition_performance_using_triplet_loss_tpu_torch.serve.convert import (
     from_jax_params,
 )
+from improving_face_recognition_performance_using_triplet_loss_tpu_torch.serve import (
+    pipeline as serve_pipeline,
+)
 from improving_face_recognition_performance_using_triplet_loss_tpu_torch.serve.pipeline import (
+    make_multiface_pipeline,
     make_multistream_pipeline,
     make_recognition_pipeline,
     normalize_gallery,
@@ -305,6 +309,60 @@ def test_dynamic_gallery_rows_mask_padding(nets):
     none = dyn(frames, gal_n, 0)
     np.testing.assert_array_equal(none["index"].numpy(), [-1, -1])
     np.testing.assert_array_equal(none["similarity"].numpy(), [-2.0, -2.0])
+
+
+def _uint8_frames(seed, n):
+    return np.random.default_rng(seed).integers(0, 256, size=(n, H, W, 3),
+                                                dtype=np.uint8)
+
+
+_FRAME_SOURCES = {
+    "uint8_numpy": lambda f: f,
+    "uint8_cpu_tensor": torch.from_numpy,
+    "float32_numpy": lambda f: f.astype(np.float32),
+    "float32_device": lambda f: torch.from_numpy(f.astype(np.float32)),
+}
+
+
+@pytest.mark.parametrize("source", list(_FRAME_SOURCES))
+def test_uploader_gives_the_host_converted_frames(source):
+    """The uploader's frames equal a conversion to float32 on the host,
+    whatever dtype and place the frames come in, on every call."""
+    dev = torch.device("cpu")
+    upload = serve_pipeline._Uploader(dev)
+    for seed in (0, 1):
+        frames = _FRAME_SOURCES[source](_uint8_frames(seed, 3))
+        got = upload(frames)
+        want = torch.as_tensor(frames, dtype=torch.float32, device=dev)
+        assert got.dtype == torch.float32 and torch.equal(got, want)
+
+
+_PIPELINES = {
+    "best_face": lambda det, model, gal: make_multistream_pipeline(
+        det, model, gal, device="cpu", **KW),
+    "multiface": lambda det, model, gal: make_multistream_pipeline(
+        det, model, gal, max_faces=4, device="cpu", **KW),
+    "single_frame": lambda det, model, gal: make_recognition_pipeline(
+        det, model, gal, device="cpu", **KW),
+    "single_frame_multiface": lambda det, model, gal: make_multiface_pipeline(
+        det, model, gal, max_faces=4, device="cpu", **KW),
+}
+
+
+@pytest.mark.parametrize("kind", list(_PIPELINES))
+def test_pipeline_uint8_frames_equal_float32_frames(nets, kind):
+    """The same frames give bit-equal outputs whether they come as uint8
+    (widened after the upload) or as float32."""
+    _, _, _, tdet, tmodel = nets
+    gallery = np.random.default_rng(5).normal(size=(5, 342))
+    fn = _PIPELINES[kind](tdet, tmodel, gallery)
+    frames = _uint8_frames(5, 2)
+    if kind.startswith("single_frame"):
+        frames = frames[0]
+    got, want = fn(frames), fn(frames.astype(np.float32))
+    assert got.keys() == want.keys()
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
 
 
 def test_serve_demo_runs_an_export_in_bf16(nets, tmp_path):

@@ -7,7 +7,7 @@ dispatch, a backbone training step and an ``extract_features`` call each
 give their spans as top-level host events, in order, none of them a user
 annotation (the kind the CUDA profiler copies onto the device's
 timeline), with every ATen op of the call under one of them; the frames'
-upload is counted at the bytes of its copy; the results are bit-equal
+upload is counted at the bytes that cross; the results are bit-equal
 with and without the profiler; ``trace``'s Chrome trace names the spans.
 """
 
@@ -166,18 +166,23 @@ def test_serving_dispatch_spans(serve_parts, max_faces):
         assert torch.equal(want[k], got[k]), k
 
 
-@pytest.mark.parametrize("source", ["numpy", "cpu_tensor"])
-def test_upload_bytes_counts_the_copy(serve_parts, source):
+@pytest.mark.parametrize("source,itemsize", [
+    ("numpy", 1), ("cpu_tensor", 1), ("float32_numpy", 4)])
+def test_upload_bytes_counts_the_copy(serve_parts, source, itemsize):
+    """Host frames are counted at the bytes that cross: uint8 frames in
+    uint8 (they are widened after the copy), float32 frames in float32."""
     pipe = _pipe(serve_parts, 0)
     frames = serve_parts[3]
     if source == "cpu_tensor":
         frames = torch.from_numpy(frames)
+    elif source == "float32_numpy":
+        frames = frames.astype(np.float32)
     _profiled(lambda: pipe(frames))
     assert profiling.counters() == {
-        "serve.upload_bytes": STREAMS * H * W * 3 * 4}
+        "serve.upload_bytes": STREAMS * H * W * 3 * itemsize}
     # a later session holds only its own counts
     _profiled(lambda: pipe(frames[:1]))
-    assert profiling.counters() == {"serve.upload_bytes": H * W * 3 * 4}
+    assert profiling.counters() == {"serve.upload_bytes": H * W * 3 * itemsize}
 
 
 def test_train_step_spans_and_bit_equal():
