@@ -89,7 +89,9 @@ before it and read just after:
   and 128x128 (B6) at batch 128, loaded the same way, held to the eager
   extraction.
 - other models (``models``): ``train_backbone --model deepface`` at
-  152x152x3 with DeepFace's full widths, 64 pairs a step, then
+  152x152x3 with DeepFace's full widths on the JAX twin's ladder (M2
+  rounding down, L5 at stride 1: not the paper's, which is
+  ``--model deepface_cvpr14``), 64 pairs a step, then
   ``extract_features --model deepface``; ``train_began`` at 64x64 with
   the default widths; both ``--mining semi_hard_fused`` (B1 once a step,
   its picks held to the plain version's), losses finite and falling,
@@ -3804,7 +3806,9 @@ def phase_aot(ctx):
 
 
 # the models phase: DeepFace at its canonical 152x152x3 with its full
-# widths (LC 16, f7 4,096), 64 pairs a step at the rate of the JAX
+# widths (LC 16, f7 4,096) on the JAX twin's ladder (C3 62, L4 54, L5 48,
+# L6 44: 229 M parameters, not the paper's 118.9 M, whose L5 takes stride
+# 2: ``deepface_cvpr14``), 64 pairs a step at the rate of the JAX
 # package's DeepFace step test (Adam 1e-3: flax's init leaves DeepFace's
 # features ~3e-7 in size, PERF.md); BEGAN-CS at 64x64 with the model's
 # default widths (n = 64, h = 64), 16 pairs a step
@@ -3890,7 +3894,8 @@ def _record_b1(ctx, run):
 
 def phase_models(ctx):
     """The other models on the card (module docstring): ``train_backbone
-    --model deepface`` at 152x152x3 and full width, then ``extract_features
+    --model deepface`` at 152x152x3 and full width (the JAX twin's
+    ladder), then ``extract_features
     --model deepface`` over its export; ``train_began`` at 64x64 with the
     default widths; both with ``--mining semi_hard_fused`` (B1 picks held
     to the plain version's on the same features)."""

@@ -12,8 +12,8 @@ B6 (square inputs, multiples of 4) or B4 (other even sizes), LightCNN29
 and EFMNet342 kernels B3 and B2. Runs on ``cuda`` unless ``--device cpu``
 is given. ``--int8`` runs every eligible conv as an exact int8 product
 (``ops/quantized.py``; LightCNN9's front then takes B4, never B6).
-``--model deepface`` takes 3 channels (72x72 synthetic faces without an
-export, as the JAX CLI). ``--data-parallel`` shards every batch over the
+``--model deepface`` and ``--model deepface_cvpr14`` take 3 channels (72x72
+synthetic faces without an export, as the JAX CLI). ``--data-parallel`` shards every batch over the
 ranks (``extract.make_sharded_extract_fn``: each rank embeds its block on
 its route's kernels, the rows gathered in rank order; ``--batch-size``
 must divide over the ranks); only rank 0 writes.
@@ -33,7 +33,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..models import MODEL_NAMES
+from ..models import MODEL_NAMES, RGB_MODELS
 
 
 class Extracted(NamedTuple):
@@ -80,7 +80,8 @@ def _load_splits(args) -> dict:
     from ..data.synthetic import synthetic_faces
 
     if args.synthetic:
-        size, ch = (72, 3) if args.model == "deepface" else (64, 1)
+        rgb = args.model in RGB_MODELS
+        size, ch = (72, 3) if rgb else (64, 1)
         if args.export_dir:
             # the export manifest knows the trained input size; a fixture at
             # any other size would fail at the dense layer

@@ -153,7 +153,7 @@ def main(argv=None):
 
     from ..data.lfw import get_paths, read_pairs
     from ..device import full_f32, resolve_device
-    from ..models import model_by_name
+    from ..models import RGB_MODELS, model_by_name
     from ..serve.convert import from_jax_params
     from ..serve.export import load_exported_params
     from ..utils import enable_compilation_cache
@@ -204,8 +204,8 @@ def main(argv=None):
                 f"{manifest['model']} ({os.path.basename(os.path.dirname(export_dir)) or export_dir})",
                 model, paths, issame, args, log, hw, ch))
         for name in args.model:
-            ch = 3 if name == "deepface" else 1
-            hw = (152, 152) if name == "deepface" else (128, 128)
+            ch = 3 if name in RGB_MODELS else 1
+            hw = (152, 152) if name in RGB_MODELS else (128, 128)
             model = model_by_name(
                 name, args.num_classes, input_hw=hw, in_channels=ch,
                 dtype=torch.bfloat16,

@@ -1,7 +1,8 @@
 """Models of the port: MTCNN PNet/RNet/ONet, the 342-d EFM symbol ladder,
-LightCNN29 and LightCNN9 (with the LightCNN building blocks), DeepFace,
-the BEGAN-CS generator and autoencoder-discriminator, the linear triplet
-head, and ``model_by_name``, the embedding-net factory the CLIs share."""
+LightCNN29 and LightCNN9 (with the LightCNN building blocks), DeepFace
+(the JAX twin's ladder and the paper's), the BEGAN-CS generator and
+autoencoder-discriminator, the linear triplet head, and
+``model_by_name``, the embedding-net factory the CLIs share."""
 
 import torch
 
@@ -25,7 +26,10 @@ from .lightcnn import (  # noqa: F401
 )
 from .mtcnn import ONet, PNet, RNet  # noqa: F401
 
-MODEL_NAMES = ("lightcnn29", "efmnet342", "lightcnn9", "deepface")
+MODEL_NAMES = ("lightcnn29", "efmnet342", "lightcnn9", "deepface",
+               "deepface_cvpr14")
+# the nets that take 3 channels at 152x152 in the CLIs
+RGB_MODELS = ("deepface", "deepface_cvpr14")
 
 
 def model_by_name(name: str, num_classes: int, *, input_hw=(128, 128),
@@ -38,12 +42,13 @@ def model_by_name(name: str, num_classes: int, *, input_hw=(128, 128),
     port's copy of the JAX package's ``cli/train_backbone.py::
     _model_by_name``, with the weights made here (flax ``params`` and
     ``batch_stats`` loaded, else a random init from ``generator``).
-    ``deepface`` takes 3 channels at 152x152 in the JAX CLIs: the caller
-    passes them."""
+    ``deepface`` (the JAX twin's ladder) and ``deepface_cvpr14`` (the
+    paper's, which the JAX package cannot build) take 3 channels at
+    152x152 in the CLIs: the caller passes them."""
     kw = dict(params=params, generator=generator, dtype=dtype, device=device)
-    if name == "deepface":
+    if name in RGB_MODELS:
         return build_deepface(num_classes, input_hw=input_hw,
-                              in_channels=in_channels, **kw)
+                              in_channels=in_channels, ladder=name, **kw)
     if name == "efmnet342":
         if input_hw[0] != input_hw[1] or in_channels != 1:
             raise ValueError(f"efmnet342 takes square one-channel input, "

@@ -20,7 +20,7 @@ import torch
 from ..device import resolve_device
 from ..models import model_by_name
 from ..models import mtcnn as nets
-from ..models.deepface import deepface_side
+from ..models.deepface import deepface_ladder, deepface_side
 from ..models.heads import LinearHead
 from ..models.lightcnn import square_side
 from .export import export_params, load_exported_params
@@ -48,7 +48,8 @@ def from_jax_params(src, *, dtype: torch.dtype = torch.float32, device=None,
     package). The input size comes from an export's manifest, else from
     ``input_hw``, else from fc1's (DeepFace: f7's) fan-in (a square
     input). DeepFace is told by its ``c1 / c3 / l4 / l5 / l6 / f7 / f8``
-    tree."""
+    tree, its ladder (the JAX twin's or the paper's, ``deepface_cvpr14``)
+    by L4's and L5's output positions, its side by L6's or L4's."""
     if isinstance(src, (str, os.PathLike)):
         params, stats, manifest = load_exported_params(os.fspath(src))
         inp = manifest["input"]
@@ -64,7 +65,7 @@ def from_jax_params(src, *, dtype: torch.dtype = torch.float32, device=None,
     if set(_DEEPFACE) <= set(src):
         side = deepface_side(src)
         return model_by_name(
-            "deepface", np.asarray(src["f8"]["kernel"]).shape[1],
+            deepface_ladder(src), np.asarray(src["f8"]["kernel"]).shape[1],
             input_hw=tuple(input_hw or (side, side)),
             in_channels=np.asarray(src["c1"]["kernel"]).shape[2],
             dtype=dtype, params=src, device=device)
@@ -72,7 +73,8 @@ def from_jax_params(src, *, dtype: torch.dtype = torch.float32, device=None,
     if key is None:
         raise NotImplementedError(
             f"params tree with top-level keys {sorted(src)}: not a model "
-            "the port has (efmnet342, lightcnn9, lightcnn29, deepface)")
+            "the port has (efmnet342, lightcnn9, lightcnn29, deepface, "
+            "deepface_cvpr14)")
     name, channels, stride = _NETS[key]
     if input_hw is None:
         side = square_side(src["fc1"]["kernel"], channels, stride)

@@ -18,7 +18,10 @@ on the device's timeline (``_RecordFunctionFast``, not ``record_function``,
 whose range the CUDA profiler copies onto the device as busy time); on a
 CUDA device it also records a pair of timing events on the current stream.
 The program opens no span inside another, and a unit's spans together
-cover every ATen op it issues. ``span_device_ms`` and ``counters`` read
+cover every ATen op it issues. A layer inside a span is timed with
+``device_span`` (forward) and ``device_span_backward`` (its backward,
+from autograd hooks): the timing events alone, no host range, so the
+flat spans stay flat. ``span_device_ms`` and ``counters`` read
 back what the most recent profiler session recorded: importing this
 module wraps torch's profiler-start hook (``_run_on_profiler_start``) so
 that each session starts with the records cleared and timing events
@@ -137,6 +140,62 @@ def count(name: str, n: int) -> None:
     if _autograd_profiler._is_profiler_enabled \
             and not torch.compiler.is_compiling():
         _RECORDER.add(name, n)
+
+
+def _timing() -> bool:
+    """Whether device-only spans record now: a profiler session, no
+    compile or export trace, and a CUDA context to record events in."""
+    return (_autograd_profiler._is_profiler_enabled
+            and not torch.compiler.is_compiling()
+            and torch.cuda.is_initialized())
+
+
+class _DeviceSpan:
+    __slots__ = ("name", "_device", "_start")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        self._device = torch.cuda.current_device()
+        self._start = _RECORDER.event(self._device)
+
+    def __exit__(self, *exc):
+        _RECORDER.spans.append((self.name, self._device, self._start,
+                                _RECORDER.event(self._device)))
+        return False
+
+
+def device_span(name: str):
+    """The pair of timing events of span ``name`` around the block, with
+    no host range, while a profiler session records on a CUDA device; the
+    shared no-op context otherwise. For a layer inside a unit's span: the
+    unit's flat host spans, and the idle they split, stay as they are."""
+    return _DeviceSpan(name) if _timing() else _OFF
+
+
+def device_span_backward(name: str, out: torch.Tensor,
+                         inp: torch.Tensor) -> None:
+    """Record the span ``name`` (timing events alone, as ``device_span``)
+    over the backward from ``out``'s gradient to ``inp``'s: one event as
+    autograd hands ``out`` its gradient, one as it has summed ``inp``'s
+    (``inp`` feeding only the layer that made ``out``). Nothing where
+    either takes no gradient or ``device_span`` would not record."""
+    if not (_timing() and out.requires_grad and inp.requires_grad):
+        return
+    device = torch.cuda.current_device()
+    start = []
+
+    def opened(grad):
+        start.append(_RECORDER.event(device))
+
+    def closed(grad):
+        if start:
+            _RECORDER.spans.append((name, device, start.pop(),
+                                    _RECORDER.event(device)))
+
+    out.register_hook(opened)
+    inp.register_hook(closed)
 
 
 def span_device_ms() -> dict[str, list[float]] | None:

@@ -1,7 +1,8 @@
 """The parts of the port's backbone slice against the JAX package, on the
 CPU: the six optimizer families and the parameter EMA against optax, the
 factor schedule, the joint and center losses, the streaming batcher, the
-image store writer, the batch transforms and device prefetching.
+CLI's host mirror, the image store writer, the batch transforms and
+device prefetching.
 """
 
 import jax
@@ -14,6 +15,9 @@ import torch
 from improving_face_recognition_performance_using_triplet_loss_tpu import (
     train as jtrain,
 )
+from improving_face_recognition_performance_using_triplet_loss_tpu.cli import (
+    train_backbone as jtrain_backbone,
+)
 from improving_face_recognition_performance_using_triplet_loss_tpu.data import (
     records as jrecords,
     streaming as jstreaming,
@@ -24,6 +28,9 @@ from improving_face_recognition_performance_using_triplet_loss_tpu.losses import
 )
 from improving_face_recognition_performance_using_triplet_loss_tpu_torch import (
     train as ttrain,
+)
+from improving_face_recognition_performance_using_triplet_loss_tpu_torch.cli import (
+    train_backbone as ttrain_backbone,
 )
 from improving_face_recognition_performance_using_triplet_loss_tpu_torch.data import (
     ShardedPairBatcher,
@@ -321,3 +328,62 @@ def test_prefetch_on_cpu_yields_the_same_batches():
             for gt, wt in zip(g, w):
                 assert isinstance(gt, torch.Tensor) and not gt.is_pinned()
                 np.testing.assert_array_equal(gt.numpy(), wt)
+
+
+@pytest.mark.parametrize("shape,dtype", [
+    ((6, 8, 10, 1), np.uint8), ((6, 8, 10, 3), np.uint8),
+    ((5, 7, 9, 3), np.float32)], ids=["gray", "rgb", "rgb_f32"])
+def test_host_mirror_matches_jax(shape, dtype):
+    """``MirrorBatches`` mirrors the rows the JAX CLI's ``_MirrorBatches``
+    mirrors, bit for bit, from the same draws, and leaves the batcher's
+    arrays as they were."""
+    rng = np.random.default_rng(0)
+    batches = [(rng.integers(0, 256, size=shape).astype(dtype),
+                rng.integers(0, 256, size=shape).astype(dtype),
+                np.arange(shape[0])) for _ in range(4)]
+    kept = [(a.copy(), p.copy()) for a, p, _ in batches]
+    got = list(ttrain_backbone.MirrorBatches(batches, True, 7))
+    want = list(jtrain_backbone._MirrorBatches(batches, True, 7))
+    assert len(got) == len(want) == 4
+    for g, w in zip(got, want):
+        for a, b in zip(g, w):
+            assert a.dtype == b.dtype and np.array_equal(a, b)
+    for (a, p, _), (ka, kp) in zip(batches, kept):
+        assert np.array_equal(a, ka) and np.array_equal(p, kp)
+
+
+
+def test_host_mirror_assembles_ahead_in_order():
+    """The batch after the one handed on is assembled on a worker thread:
+    unmirrored, the batcher's batches come through in order; the worker
+    draws at most one batch ahead; closed early, the iterator stops its
+    worker."""
+    import threading
+
+    drawn = []
+
+    def batcher():
+        for i in range(5):
+            drawn.append(i)
+            yield np.full((2, 3, 3, 1), i, np.uint8), np.zeros(
+                (2, 3, 3, 1), np.uint8), np.array([i, i])
+
+    class Batcher:
+        def __iter__(self):
+            return batcher()
+
+    got = [int(a[0, 0, 0, 0])
+           for a, _, _ in ttrain_backbone.MirrorBatches(Batcher(), False, 0)]
+    assert got == [0, 1, 2, 3, 4]
+    before = threading.active_count()
+    drawn.clear()
+    it = iter(ttrain_backbone.MirrorBatches(Batcher(), True, 0))
+    next(it)
+    it.close()
+    # the next batch was under way, or cancelled before it began
+    assert drawn in ([0], [0, 1])
+    for _ in range(100):
+        if threading.active_count() <= before:
+            break
+        threading.Event().wait(0.05)
+    assert threading.active_count() <= before
