@@ -32,10 +32,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..parallel.collectives import broadcast_object, global_argmax
+from ..ops.distances import l2_normalize_np
+from ..parallel.collectives import broadcast_object
 from ..parallel.distributed import process_info
 from ..parallel.mesh import axis_group, axis_index
 from .device_gallery import DeviceGallery
+from .gallery import gallery_match
 from .person_store import MatchResult, Person, PersonStore
 
 
@@ -204,34 +206,22 @@ class PersonGalleryService:
                     sim_th: float = 0.5) -> list[MatchResult]:
         """Identify N probe features in ONE device product against the
         device-resident gallery — the standalone counterpart of the
-        pipelines' fused match (same `_match_gallery` masking), returning
-        resolved MatchResults with PersonStore.match's empty-store/
-        threshold semantics."""
-        from ..ops.distances import l2_normalize_np
-        from .pipeline import _match_gallery, gallery_sims
-
+        pipelines' fused match (the same :func:`~.gallery.gallery_match`,
+        over this rank's block and reduced over the gallery axis with a
+        mesh), returning resolved MatchResults with PersonStore.match's
+        empty-store/threshold semantics."""
         probes = np.atleast_2d(np.asarray(probes, np.float32))
         gal = self.gallery_n
+        row0, group = 0, None
+        if self._mesh is not None:
+            row0 = axis_index(self._mesh, self._gallery_axis) * gal.shape[0]
+            group = axis_group(self._mesh, self._gallery_axis)
         with torch.inference_mode():
             probes_n = torch.from_numpy(l2_normalize_np(probes)).to(
                 gal.device)
-            sims = gallery_sims(probes_n, gal)
-            if self._mesh is None:
-                idx, sim, real = _match_gallery(sims, self.rows_arg)
-            else:
-                idx, sim, real = self._match_sharded(sims)
+            idx, sim, real = gallery_match(probes_n, gal, self.rows_arg,
+                                           row0, group)
             idx, sim, real = (t.cpu().numpy() for t in (idx, sim, real))
         return [self.resolve(int(i), float(s), sim_th) if bool(r)
                 else MatchResult(None, 0.0)  # empty gallery: host parity
                 for i, s, r in zip(idx, sim, real)]
-
-    def _match_sharded(self, sims: torch.Tensor):
-        """``_match_gallery`` over this rank's block ``[N, block]`` of the
-        sharded gallery, reduced over the gallery axis."""
-        from .pipeline import _match_gallery
-
-        row0 = axis_index(self._mesh, self._gallery_axis) * sims.shape[-1]
-        idx, sim, _ = _match_gallery(sims, self.rows - row0)
-        idx, sim = global_argmax(
-            idx, sim, row0, axis_group(self._mesh, self._gallery_axis))
-        return idx, sim, sim > float("-inf")

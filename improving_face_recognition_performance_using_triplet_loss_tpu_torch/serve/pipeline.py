@@ -1,17 +1,20 @@
 """The fused recognition pipeline: detect -> crop -> embed -> match.
 
-Port of the JAX package's ``serve/pipeline.py`` single-frame and
-multi-stream pipelines: the MTCNN cascade, the largest-centered face, its
-margin crop resized to the embedding input in grayscale, the embedding net,
-L2 normalization and the cosine gallery argmax, for a batch of frames at
-once. The JAX package compiles this into one XLA program and ``vmap``-s it
-over streams; here each stage runs eagerly over the frame axis, and the
-kernels of the path (NMS, the fused stem, EFM3) launch once per stage for
-all frames. ``int8_embed=True`` runs the embedding net (never MTCNN) on
-the int8 conv route of ``ops/quantized.py`` with one activation scale a
-frame: the JAX package embeds each frame's crops (one, or ``max_faces``
-with the empty slots) in its own call under ``vmap``. The mesh-sharded
-pipelines split the frames over a mesh's ranks
+Port of the JAX package's ``serve/pipeline.py`` single-frame, multi-stream
+and multiface pipelines, for a batch of frames at once. Every pipeline is
+one front and one match. The front (:func:`_make_front`) uploads the
+frames, runs the MTCNN cascade, picks each frame's faces (a selection: the
+largest-centered face, or the top ``max_faces`` by score), margin-crops
+them resized to the embedding input in grayscale, runs the embedding net
+and L2-normalizes; the match is the gallery's one cosine argmax
+(:func:`~.gallery.gallery_match`). The JAX package compiles this into one
+XLA program and ``vmap``-s it over streams; here each stage runs eagerly
+over the frame axis, and the kernels of the path (NMS, the fused stem,
+EFM3) launch once per stage for all frames. ``int8_embed=True`` runs the
+embedding net (never MTCNN) on the int8 conv route of ``ops/quantized.py``
+with one activation scale a frame: the JAX package embeds each frame's
+crops (one, or ``max_faces`` with the empty slots) in its own call under
+``vmap``. The mesh-sharded pipelines split the frames over a mesh's ranks
 (:func:`make_sharded_multistream_pipeline`) or the gallery's rows as well
 (:func:`shard_gallery`, :func:`make_gallery_sharded_multistream_pipeline`).
 """
@@ -19,6 +22,7 @@ pipelines split the frames over a mesh's ranks
 from __future__ import annotations
 
 import threading
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -27,27 +31,20 @@ from ..detect.device_cascade import crop_resize_boxes, make_device_cascade
 from ..device import resolve_device
 from ..models.mtcnn import conv_route
 from ..ops.boxes import stable_topk
-from ..ops.distances import (gallery_sims, l2_normalize, l2_normalize_np,
-                             narrow_gallery_np)
+from ..ops.distances import l2_normalize, l2_normalize_np, narrow_gallery_np
 from ..ops.quantized import Int8ConvRoute
-from ..parallel.collectives import gather_rows, global_argmax
+from ..parallel.collectives import gather_rows
 from ..parallel.mesh import axis_group, axis_index, axis_size, local_block
 from ..utils.profiling import count, span
+from .gallery import gallery_match, normalize_gallery  # noqa: F401
+
 # the device cascade's output capacity: the most faces a frame can yield
 MAX_FACES = 64
-
-
-def _match_gallery(sims: torch.Tensor, rows=None):
-    """Masked cosine argmax over the last (gallery) axis. NaNs map to -2.0;
-    with ``rows``, columns >= rows are -inf so padding never wins. Returns
-    ``(idx, sim, real)``, ``real`` False where every column is masked."""
-    sims = torch.where(torch.isnan(sims), -2.0, sims)
-    if rows is not None:
-        cols = torch.arange(sims.shape[-1], device=sims.device)
-        sims = torch.where(cols < rows, sims, float("-inf"))
-    idx = torch.argmax(sims, dim=-1)         # the first maximum, as in JAX
-    sim = torch.amax(sims, dim=-1)
-    return idx, sim, sim > float("-inf")
+# the result fields of the single-face pipelines, and of the multiface ones
+_FIELDS = ("found", "box", "score", "index", "similarity", "embedding",
+           "cap_dropped")
+_FACE_FIELDS = ("found", "boxes", "scores", "indices", "similarities",
+                "embeddings", "cap_dropped")
 
 
 def _host_uint8(frames) -> bool:
@@ -131,50 +128,112 @@ def _embed_fn(embed_model, int8_embed: bool):
     return embed
 
 
-def _make_detect_embed(detector, embed_model, *, frame_h, frame_w,
-                       embed_size, margin, minsize, thresholds, device,
-                       int8_embed=False):
-    """The gallery-independent front: cascade -> largest-centered face ->
-    margin crop -> grayscale resize -> embed -> L2 norm, over a batch of
-    frames. Returns fn(frames [F, H, W, 3]) -> (found [F], box [F, 4],
-    score [F], emb [F, D], cap_dropped [F])."""
+class _Selection(NamedTuple):
+    """How the front picks K faces a frame from the cascade's rows:
+    ``pick(boxes [F, cap, 5]) -> (found [F, K], box [F, K, 4], score
+    [F, K], extra result fields)``. ``zero_nonfinite`` crops the
+    margin-padded boxes that are not finite as zeros."""
+    pick: Callable
+    zero_nonfinite: bool
+
+
+def _largest_centered(frame_h: int, frame_w: int) -> _Selection:
+    """The single-face selection (K = 1): each frame's valid face of
+    largest ``area - 2 * center offset^2``. A frame with none keeps the
+    cascade's first row, ``found`` False, cropped as it is."""
+
+    def pick(boxes):
+        valid = torch.isfinite(boxes[..., 4])
+        found = valid.any(-1, keepdim=True)
+        area = ((boxes[..., 2] - boxes[..., 0])
+                * (boxes[..., 3] - boxes[..., 1]))
+        cx = (boxes[..., 0] + boxes[..., 2]) * 0.5 - frame_w / 2.0
+        cy = (boxes[..., 1] + boxes[..., 3]) * 0.5 - frame_h / 2.0
+        rank = torch.where(valid, area - 2.0 * (cx * cx + cy * cy),
+                           float("-inf"))
+        best = torch.argmax(rank, dim=-1)
+        sel = torch.gather(boxes, 1, best[:, None, None].expand(-1, 1, 5))
+        return found, sel[..., :4], sel[..., 4], {}
+
+    return _Selection(pick, zero_nonfinite=False)
+
+
+def _top_scores(max_faces: int) -> _Selection:
+    """The multiface selection: each frame's ``max_faces`` valid faces of
+    highest score (ties to the lower row, as ``lax.top_k``). The empty
+    slots score -inf with ``found`` False, and their boxes, which may not
+    be finite, crop as zeros. Adds ``topk_dropped``, the valid faces
+    beyond ``max_faces``."""
+
+    def pick(boxes):
+        valid = torch.isfinite(boxes[..., 4])
+        score = torch.where(valid, boxes[..., 4], float("-inf"))
+        k = min(max_faces, boxes.shape[1])
+        top_s, top_i = stable_topk(score, k)               # [F, K]
+        sel = torch.gather(boxes[..., :4], 1,
+                           top_i[..., None].expand(-1, k, 4))
+        dropped = torch.clamp(valid.sum(-1, dtype=torch.int32) - k, min=0)
+        return torch.isfinite(top_s), sel, top_s, {"topk_dropped": dropped}
+
+    return _Selection(pick, zero_nonfinite=True)
+
+
+def _make_front(detector, embed_model, select: _Selection, *, frame_h,
+                frame_w, embed_size, margin, minsize, thresholds,
+                int8_embed, device):
+    """The gallery-independent front of every pipeline: upload -> cascade
+    -> ``select``'s K faces a frame -> margin pad and clip -> crop resized
+    to the embedding input in grayscale -> embed -> L2 norm. Returns
+    fn(frames [F, H, W, 3]) -> (found [F, K], box [F, K, 4], score
+    [F, K], emb [F, K, D], cap_dropped [F], extra result fields)."""
+    upload = _Uploader(device)
     cascade = make_device_cascade(
         detector.pnet, detector.rnet, detector.onet, frame_h, frame_w,
         minsize=minsize, thresholds=thresholds, device=device)
     embed = _embed_fn(embed_model, int8_embed)
     half = margin / 2
 
-    def detect_embed(frames: torch.Tensor):
+    def front(frames):
+        with span("serve.upload"):
+            frames = upload(frames)
+        nf = frames.shape[0]
         boxes, _, counts = cascade(frames)                 # [F, cap, 5]
         with span("serve.crop"):
-            valid = torch.isfinite(boxes[..., 4])
-            found = valid.any(-1)
-            # largest-centered selection (area - 2 * center offset^2)
-            area = ((boxes[..., 2] - boxes[..., 0])
-                    * (boxes[..., 3] - boxes[..., 1]))
-            cx = (boxes[..., 0] + boxes[..., 2]) * 0.5 - frame_w / 2.0
-            cy = (boxes[..., 1] + boxes[..., 3]) * 0.5 - frame_h / 2.0
-            rank = torch.where(valid, area - 2.0 * (cx * cx + cy * cy),
-                               float("-inf"))
-            best = torch.argmax(rank, dim=-1)
-            sel = torch.gather(boxes, 1,
-                               best[:, None, None].expand(-1, 1, 5))[:, 0]
+            found, sel, score, extra = select.pick(boxes)
+            k = sel.shape[1]
             # margin pad + clip (crop_face semantics)
             box = torch.stack([
-                torch.clamp(sel[:, 0] - half, min=0.0),
-                torch.clamp(sel[:, 1] - half, min=0.0),
-                torch.clamp(sel[:, 2] + half, max=float(frame_w)),
-                torch.clamp(sel[:, 3] + half, max=float(frame_h)),
+                torch.clamp(sel[..., 0] - half, min=0.0),
+                torch.clamp(sel[..., 1] - half, min=0.0),
+                torch.clamp(sel[..., 2] + half, max=float(frame_w)),
+                torch.clamp(sel[..., 3] + half, max=float(frame_h)),
             ], dim=-1)
-            crop = crop_resize_boxes(frames, box[:, None], embed_size)[:, 0]
-            gray = crop.mean(dim=-1, keepdim=True) / 255.0
-            score = sel[:, 4]
+            crop_box = (torch.where(torch.isfinite(box), box, 0.0)
+                        if select.zero_nonfinite else box)
+            crops = crop_resize_boxes(frames, crop_box, embed_size)
+            gray = crops.mean(dim=-1, keepdim=True) / 255.0  # [F, K, S, S, 1]
             cap_dropped = counts[:, 0] + counts[:, 1] + counts[:, 2]
         with span("serve.embed"):
-            emb = l2_normalize(embed(gray, frames.shape[0]))
-        return found, box, score, emb, cap_dropped
+            feats = embed(gray.reshape(nf * k, embed_size, embed_size, 1), nf)
+            emb = l2_normalize(feats).reshape(nf, k, -1)    # [F, K, D]
+        return found, box, score, emb, cap_dropped, extra
 
-    return detect_embed
+    return front
+
+
+def _result(fields, found, box, score, idx, sim, real, emb, cap_dropped,
+            sim_threshold: float, extra: dict) -> dict:
+    """A pipeline's dict, under ``fields``' names, from its faces'
+    detections, embeddings and gallery match."""
+    matched = found & real & (sim >= sim_threshold)
+    return dict(zip(fields, (
+        found, box, score, torch.where(matched, idx, -1).to(torch.int32),
+        torch.where(found & real, sim, -2.0), emb, cap_dropped)), **extra)
+
+
+def _first_face(found, box, score, emb):
+    """The front's K = 1 fields without the face axis."""
+    return found[:, 0], box[:, 0], score[:, 0], emb[:, 0]
 
 
 def make_multistream_pipeline(detector, embed_model, gallery=None, *,
@@ -198,53 +257,35 @@ def make_multistream_pipeline(detector, embed_model, gallery=None, *,
     with the L2-normalized gallery (:func:`normalize_gallery`) passed at
     call time; columns >= ``rows`` are masked out of the argmax.
 
-    ``max_faces`` > 0 runs :func:`make_multiface_pipeline` over the batch
-    instead: every field gains a leading N axis over its per-face arrays."""
-    if max_faces:
-        return _make_multiface_batched(
-            detector, embed_model, gallery, frame_h=frame_h,
-            frame_w=frame_w, embed_size=embed_size, margin=margin,
-            minsize=minsize, thresholds=thresholds,
-            sim_threshold=sim_threshold, max_faces=max_faces,
-            int8_embed=int8_embed, dynamic_gallery=dynamic_gallery,
-            device=device)
+    ``max_faces`` > 0 identifies the top ``max_faces`` faces of every
+    frame instead: :func:`make_multiface_pipeline`'s dict, every field
+    with a leading N axis over its per-face arrays."""
+    if max_faces > MAX_FACES:   # the cascade's out_cap; no silent truncation
+        raise ValueError(
+            f"max_faces ({max_faces}) exceeds the device cascade's output "
+            f"capacity ({MAX_FACES})")
     dev = resolve_device(device)
-    detect_embed = _make_detect_embed(
-        detector, embed_model, frame_h=frame_h, frame_w=frame_w,
+    select = (_top_scores(max_faces) if max_faces
+              else _largest_centered(frame_h, frame_w))
+    front = _make_front(
+        detector, embed_model, select, frame_h=frame_h, frame_w=frame_w,
         embed_size=embed_size, margin=margin, minsize=minsize,
-        thresholds=thresholds, device=dev, int8_embed=int8_embed)
-    upload = _Uploader(dev)
+        thresholds=thresholds, int8_embed=int8_embed, device=dev)
     baked = None if dynamic_gallery else l2_normalize(
         torch.as_tensor(np.asarray(gallery, np.float32), device=dev))
 
     @torch.inference_mode()
     def pipeline(frames, gallery_n=baked, rows=None):
-        with span("serve.upload"):
-            frames = upload(frames)
-        found, box, score, emb, cap_dropped = detect_embed(frames)
+        *faces, cap_dropped, extra = front(frames)
         with span("serve.match"):
-            idx, sim, real = _match_gallery(gallery_sims(emb, gallery_n),
-                                            rows)
-            return _result(found, box, score, idx, sim, real, emb,
-                           cap_dropped, sim_threshold)
+            found, box, score, emb = (faces if max_faces
+                                      else _first_face(*faces))
+            idx, sim, real = gallery_match(emb, gallery_n, rows)
+            return _result(_FACE_FIELDS if max_faces else _FIELDS, found,
+                           box, score, idx, sim, real, emb, cap_dropped,
+                           sim_threshold, extra)
 
     return pipeline
-
-
-def _result(found, box, score, idx, sim, real, emb, cap_dropped,
-            sim_threshold: float) -> dict:
-    """The multi-stream pipelines' dict from the best face's detection,
-    embedding and gallery match."""
-    matched = found & real & (sim >= sim_threshold)
-    return {
-        "found": found,
-        "box": box,
-        "score": score,
-        "index": torch.where(matched, idx, -1).to(torch.int32),
-        "similarity": torch.where(found & real, sim, -2.0),
-        "embedding": emb,
-        "cap_dropped": cap_dropped,
-    }
 
 
 def _single(multi):
@@ -280,82 +321,11 @@ def make_multiface_pipeline(detector, embed_model, gallery=None, **kwargs):
     ``similarities``, ``embeddings`` [K, D], plus the scalars
     ``cap_dropped`` (the cascade's capacity drops) and ``topk_dropped``
     (valid detections beyond ``max_faces``). ``dynamic_gallery=True``:
-    fn(frame, gallery_n[, rows]). Takes :func:`_make_multiface_batched`'s
-    keywords (``frame_h``, ``frame_w``, ``embed_size``, ``margin``,
-    ``minsize``, ``thresholds``, ``sim_threshold``, ``max_faces`` = 8,
-    ``int8_embed``, ``dynamic_gallery``, ``device``)."""
-    return _single(_make_multiface_batched(detector, embed_model, gallery,
-                                           **kwargs))
-
-
-def _make_multiface_batched(detector, embed_model, gallery=None, *,
-                            frame_h: int, frame_w: int, embed_size: int = 128,
-                            margin: int = 16, minsize: int = 20,
-                            thresholds=(0.6, 0.7, 0.7),
-                            sim_threshold: float = 0.5, max_faces: int = 8,
-                            int8_embed: bool = False,
-                            dynamic_gallery: bool = False, device=None):
-    """:func:`make_multiface_pipeline` over a batch of frames
-    ``[N, H, W, 3]``: every output gains a leading N axis."""
-    if max_faces > MAX_FACES:   # the cascade's out_cap; no silent truncation
-        raise ValueError(
-            f"max_faces ({max_faces}) exceeds the device cascade's output "
-            f"capacity ({MAX_FACES})")
-    dev = resolve_device(device)
-    embed = _embed_fn(embed_model, int8_embed)
-    cascade = make_device_cascade(
-        detector.pnet, detector.rnet, detector.onet, frame_h, frame_w,
-        minsize=minsize, thresholds=thresholds, device=dev)
-    upload = _Uploader(dev)
-    baked = None if dynamic_gallery else l2_normalize(
-        torch.as_tensor(np.asarray(gallery, np.float32), device=dev))
-    half = margin / 2
-
-    @torch.inference_mode()
-    def pipeline(frames, gallery_n=baked, rows=None):
-        with span("serve.upload"):
-            frames = upload(frames)
-        nf = frames.shape[0]
-        boxes, _, counts = cascade(frames)                 # [F, cap, 5]
-        with span("serve.crop"):
-            valid = torch.isfinite(boxes[..., 4])
-            score = torch.where(valid, boxes[..., 4], float("-inf"))
-            k = min(max_faces, boxes.shape[1])
-            top_s, top_i = stable_topk(score, k)           # [F, K]
-            found = torch.isfinite(top_s)
-            sel = torch.gather(boxes[..., :4], 1,
-                               top_i[..., None].expand(nf, k, 4))
-            # margin pad + clip per face (crop_face semantics); rows of
-            # invalid faces may be non-finite and are masked by `found`
-            bxs = torch.stack([
-                torch.clamp(sel[..., 0] - half, min=0.0),
-                torch.clamp(sel[..., 1] - half, min=0.0),
-                torch.clamp(sel[..., 2] + half, max=float(frame_w)),
-                torch.clamp(sel[..., 3] + half, max=float(frame_h)),
-            ], dim=-1)
-            safe = torch.where(torch.isfinite(bxs), bxs, 0.0)
-            crops = crop_resize_boxes(frames, safe, embed_size)
-            gray = crops.mean(dim=-1, keepdim=True) / 255.0  # [F, K, S, S, 1]
-        with span("serve.embed"):
-            feats = embed(gray.reshape(nf * k, embed_size, embed_size, 1), nf)
-            embs = l2_normalize(feats).reshape(nf, k, -1)   # [F, K, D]
-        with span("serve.match"):
-            idx, sim, real = _match_gallery(gallery_sims(embs, gallery_n),
-                                            rows)
-            matched = found & real & (sim >= sim_threshold)
-            return {
-                "found": found,
-                "boxes": bxs,
-                "scores": top_s,
-                "indices": torch.where(matched, idx, -1).to(torch.int32),
-                "similarities": torch.where(found & real, sim, -2.0),
-                "embeddings": embs,
-                "cap_dropped": counts[:, 0] + counts[:, 1] + counts[:, 2],
-                "topk_dropped": torch.clamp(
-                    valid.sum(-1, dtype=torch.int32) - k, min=0),
-            }
-
-    return pipeline
+    fn(frame, gallery_n[, rows]). Takes :func:`make_multistream_pipeline`'s
+    keywords, ``max_faces`` 8 unless given (at most :data:`MAX_FACES`)."""
+    kwargs.setdefault("max_faces", 8)
+    return _single(make_multistream_pipeline(detector, embed_model, gallery,
+                                             **kwargs))
 
 
 def make_sharded_multistream_pipeline(detector, embed_model, gallery, mesh,
@@ -416,15 +386,14 @@ def make_gallery_sharded_multistream_pipeline(
     multiple of the mesh size. ``stream_axis`` names the mesh's other
     axis (the frames span both)."""
     del stream_axis
-    dev = resolve_device(device)
-    detect_embed = _make_detect_embed(
-        detector, embed_model, frame_h=frame_h, frame_w=frame_w,
-        embed_size=embed_size, margin=margin, minsize=minsize,
-        thresholds=thresholds, device=dev, int8_embed=int8_embed)
+    front = _make_front(
+        detector, embed_model, _largest_centered(frame_h, frame_w),
+        frame_h=frame_h, frame_w=frame_w, embed_size=embed_size,
+        margin=margin, minsize=minsize, thresholds=thresholds,
+        int8_embed=int8_embed, device=resolve_device(device))
     world, ndev = axis_group(mesh, None), axis_size(mesh, None)
     ggroup = axis_group(mesh, gallery_axis)
     gindex = axis_index(mesh, gallery_axis)
-    upload = _Uploader(dev)
 
     @torch.inference_mode()
     def run(frames, gal_n, rows):
@@ -433,28 +402,14 @@ def make_gallery_sharded_multistream_pipeline(
             raise ValueError(
                 f"stream count ({n}) must be a multiple of the mesh size "
                 f"({ndev}) — frames shard over the whole mesh")
-        with span("serve.upload"):
-            frames = upload(local_block(frames, mesh, None))
-        local = detect_embed(frames)
+        *faces, cap_dropped, extra = front(local_block(frames, mesh, None))
         with span("serve.match"):
             found, box, score, emb, cap_dropped = (
-                gather_rows(t, world) for t in local)
-            row0 = gindex * gal_n.shape[0]
-            sims = gallery_sims(emb, gal_n)               # [N, block]
-            idx, sim, _ = _match_gallery(
-                sims, torch.as_tensor(rows, device=sims.device) - row0)
-            idx, sim = global_argmax(idx, sim, row0, ggroup)
-            return _result(found, box, score, idx, sim, sim > float("-inf"),
-                           emb, cap_dropped, sim_threshold)
+                gather_rows(t, world)
+                for t in (*_first_face(*faces), cap_dropped))
+            idx, sim, real = gallery_match(
+                emb, gal_n, rows, gindex * gal_n.shape[0], ggroup)
+            return _result(_FIELDS, found, box, score, idx, sim, real, emb,
+                           cap_dropped, sim_threshold, extra)
 
     return run
-
-
-def normalize_gallery(gallery, dtype=torch.float32, device=None) -> torch.Tensor:
-    """Gallery rows -> the L2-normalized ``[G, D]`` tensor the
-    ``dynamic_gallery`` pipelines take, stored as float32, bfloat16 or int8
-    on the 127 scale (normalized in float32 on the host, narrowed before
-    the upload)."""
-    rows = narrow_gallery_np(l2_normalize_np(np.asarray(gallery, np.float32)),
-                             dtype)
-    return rows.to(resolve_device(device))

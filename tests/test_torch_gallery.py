@@ -199,15 +199,86 @@ def test_device_gallery_feeds_the_dynamic_match():
     rows = _rows(7, 3, 342)
     tg = tdg.DeviceGallery(dim=342, capacity=8, device="cpu")
     probe = torch.from_numpy(td.l2_normalize_np(rows[1:2]))
-    idx, sim, real = tpipe._match_gallery(
-        td.gallery_sims(probe, tg.gallery_n), tg.rows_arg)
+    idx, sim, real = tgal.gallery_match(probe, tg.gallery_n, tg.rows_arg)
     assert not bool(real[0])
     for r in rows:
         tg.add(r)
-    idx, sim, real = tpipe._match_gallery(
-        td.gallery_sims(probe, tg.gallery_n), tg.rows_arg)
+    idx, sim, real = tgal.gallery_match(probe, tg.gallery_n, tg.rows_arg)
     assert int(idx[0]) == 1 and bool(real[0])
     assert abs(float(sim[0]) - 1.0) < 1e-6
+
+
+def _numpy_match(sims: np.ndarray, rows=None):
+    """The gallery match's contract in numpy: a NaN similarity is -2.0,
+    the rows at or past ``rows`` are -inf, the first maximum wins."""
+    sims = np.where(np.isnan(sims), np.float32(-2.0), sims)
+    if rows is not None:
+        sims[..., int(rows):] = -np.inf
+    return sims.argmax(-1), sims.max(-1), sims.max(-1) > -np.inf
+
+
+def _match_case(case: str):
+    """``(probes, stored rows, rows, the expected winners or None)`` for
+    one case of :func:`test_gallery_match`."""
+    gallery = td.l2_normalize_np(_rows(21, 8, 342))
+    probes = td.l2_normalize_np(gallery[[2, 5, 7]] + 0.01 * _rows(22, 3, 342))
+    rows, want = None, [2, 5, 7]
+    if case == "nan":                 # a NaN row never wins, unless alone
+        probes[1] = gallery[5]
+        gallery[5, 0] = np.nan
+        rows, want = 8, [2, None, 7]
+    elif case == "all_nan":           # the -2.0 sentinel, still real
+        gallery[:, 0] = np.nan
+        want = [0, 0, 0]
+    elif case == "padding":           # rows past the count never win
+        rows, want = torch.tensor(6, dtype=torch.int32), [2, 5, None]
+    elif case == "empty":
+        rows, want = 0, [0, 0, 0]
+    elif case == "tie":               # equal rows: the lowest wins
+        gallery[2] = gallery[6] = probes[0] = np.eye(1, 342)
+    dtype = DTYPES[case][1] if case in DTYPES else torch.float32
+    return (torch.from_numpy(probes), td.narrow_gallery_np(gallery, dtype),
+            rows, want)
+
+
+@pytest.mark.parametrize("case", ["f32", "bf16", "int8", "nan", "all_nan",
+                                  "padding", "empty", "tie", "world1"])
+def test_gallery_match(case):
+    """The one gallery match (``serve/gallery.py::gallery_match``) that
+    the pipelines, the matchers and the gallery service run: its NaN
+    sentinel, padding mask and first maximum against numpy on every row
+    dtype, and the shard reduction over a process group of one equal to
+    the unsharded match."""
+    if case == "world1":              # every real-row count, 0 to all
+        probes, gal_n, _, _ = _match_case("f32")
+        with parallel.process_group("cpu"):
+            group = parallel.axis_group(parallel.make_2d_mesh(1), "model")
+            for rows in range(gal_n.shape[0] + 1):
+                got = tgal.gallery_match(probes, gal_n, rows, 0, group)
+                want = tgal.gallery_match(probes, gal_n, rows)
+                _assert_tree_equal([t.numpy() for t in got],
+                                   [t.numpy() for t in want])
+        return
+    probes, gal_n, rows, want = _match_case(case)
+    idx, sim, real = tgal.gallery_match(probes, gal_n, rows)
+    sims = td.gallery_sims(probes, gal_n).numpy()
+    ref_idx, ref_sim, ref_real = _numpy_match(sims, rows)
+    np.testing.assert_array_equal(idx.numpy(), ref_idx)
+    np.testing.assert_array_equal(sim.numpy(), ref_sim)
+    np.testing.assert_array_equal(real.numpy(), ref_real)
+    if want is not None:
+        for i, w in enumerate(want):
+            assert w is None or int(idx[i]) == w
+    if case == "nan":
+        assert int(idx[1]) != 5 and not torch.isnan(sim).any()
+    if case == "tie":
+        assert sims[0, 2] == sims[0, 6] == sim[0] == 1.0
+    if case == "all_nan":
+        assert (sim == -2.0).all() and real.all()
+    if case == "empty":
+        assert (sim == float("-inf")).all() and not real.any()
+    if case == "padding":
+        assert int(idx[2]) < 6
 
 
 @pytest.mark.parametrize("name", ["f32", "bf16", "int8"])
